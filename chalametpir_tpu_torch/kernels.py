@@ -1,12 +1,13 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources under `csrc/` have a plain C interface, so they are compiled
-with `nvcc` straight into one shared library (no PyTorch headers: a build
-takes seconds, not minutes) and bound with ctypes. The build happens on
-first use, never at import, into `_build/` next to this file, keyed by a
-digest of the sources and the flags; a second process waits on a file
-lock and reuses the result. Same build-on-first-use idiom as the native
-host engine (chalametpir_tpu/native/engine.py).
+with `nvcc` into one shared library (no PyTorch headers: a build takes
+seconds, not minutes; one nvcc per source, in parallel) and bound with
+ctypes. The build happens on first use, never at import, into `_build/`
+next to this file, keyed by a digest of the sources and the flags; a
+second process waits on a file lock and reuses the result. Same
+build-on-first-use idiom as the native host engine
+(chalametpir_tpu/native/engine.py).
 
 Each launch function checks device, dtype, shape and contiguity, launches
 on PyTorch's current stream without synchronising, raises if the launch was
@@ -28,15 +29,16 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("ctr_keccak.cu", "respond_packed.cu")
+SOURCES = ("ctr_keccak.cu", "respond_packed.cu", "respond_digits.cu")
+# each source compiles to an object in its own nvcc process, all started
+# together; one more nvcc call links the objects into the library
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # launches per kernel since the last reset_launch_counts(); a run reads
 # them to show that its path went through the kernels
-LAUNCHES = {"ctr_keccak": 0, "respond_packed": 0}
+LAUNCHES = {"ctr_keccak": 0, "respond_packed": 0, "respond_digits": 0}
 
 _lib = None
 
@@ -79,11 +81,28 @@ def build() -> float:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(so):
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                   *(os.path.join(_CSRC, s) for s in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            nvcc = nvcc_path()
+            objs = [f"{tmp}.{name}.o" for name in SOURCES]
+            procs = [
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC, name), "-o", obj],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for name, obj in zip(SOURCES, objs)
+            ]
+            errors = []
+            for name, proc in zip(SOURCES, procs):
+                log = proc.communicate()[0]
+                if proc.returncode != 0:
+                    errors.append(f"nvcc {name} failed ({proc.returncode}):\n{log}")
+            if not errors:
+                proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    errors.append(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+            if errors:
+                raise RuntimeError("\n".join(errors))
             os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     u64, i64, vp = ctypes.c_uint64, ctypes.c_int64, ctypes.c_void_p
@@ -93,6 +112,11 @@ def build() -> float:
     lib.respond_packed_launch.argtypes = [
         vp, i64, i64, i64, vp, vp, i64, i64, i64, ctypes.c_int, ctypes.c_int,
         i64, i64, vp, i64, vp,
+    ]
+    lib.respond_digits_launch.restype = ctypes.c_int
+    lib.respond_digits_launch.argtypes = [
+        vp, i64, i64, i64, i64, vp, vp, i64, i64, i64, ctypes.c_int, i64, i64, ctypes.c_int,
+        vp, vp, vp,
     ]
     _lib = lib
     return time.perf_counter() - t0
@@ -190,3 +214,85 @@ def respond_packed(
             "respond_packed",
         )
     LAUNCHES["respond_packed"] += 1
+
+
+# the digit kernel's blocks carry 4-8 warps each, and every block ends in
+# qd_rows x c_pad atomics: fewer, longer row splits than respond_packed
+_DIGIT_TARGET_BLOCKS = 1024
+_WARP_ROWS = 8  # digit rows per warp
+_MAX_WARPS = 8
+
+
+def respond_digits(
+    qd: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor | None, pack: int,
+    out_lo: torch.Tensor, out_hi: torch.Tensor | None,
+) -> None:
+    """out_lo += qd . lo and out_hi += qd[:qh_rows] . hi fields (mod 2^32).
+
+    qd: int8 digits, (qd_rows, m) with unit column stride (the strided 2-D
+    layout) or (n_tiles, qd_rows, tile_k) with unit last stride (the
+    tile-contiguous 3-D layout), read through its strides either way;
+    qd_rows % 32 == 0. lo (>= m, c_pad) int8 and hi (>= m, pc) uint8 (None
+    when pack == 0), contiguous; out_lo (qd_rows, c_pad) and out_hi
+    (qh_rows, c_pad) contiguous int32, qh_rows = qd_rows - qd_rows // 4."""
+    _require_cuda(qd, "qd", torch.int8)
+    _require_cuda(lo, "lo", torch.int8)
+    _require_cuda(out_lo, "out_lo", torch.int32)
+    if qd.dim() == 2:
+        if qd.stride(1) != 1:
+            raise ValueError("2-D digits need unit column stride")
+        qd_rows, m = qd.shape
+        tile_k, tile_stride, row_stride = m, 0, qd.stride(0)
+    elif qd.dim() == 3:
+        if qd.stride(2) != 1:
+            raise ValueError("3-D digits need unit stride within a tile")
+        n_tiles, qd_rows, tile_k = qd.shape
+        m, tile_stride, row_stride = n_tiles * tile_k, qd.stride(0), qd.stride(1)
+    else:
+        raise ValueError(f"qd must be 2-D or 3-D, got {qd.dim()}-D")
+    rows, c_pad = lo.shape
+    if m > rows or not lo.is_contiguous() or c_pad % 128:
+        raise ValueError("lo must be contiguous, cover the digit length, and have c_pad % 128 == 0")
+    if qd_rows % 32 or m % 4 or tile_k % 4 or tile_stride % 4 or row_stride % 4:
+        raise ValueError("need qd_rows % 32 == 0 and m, tile_k and the digit strides % 4 == 0")
+    if pack not in (0, 1, 2, 4, 8):
+        raise ValueError(f"pack must be 0, 1, 2, 4 or 8, got {pack}")
+    qh_rows = qd_rows - qd_rows // 4
+    if out_lo.shape != (qd_rows, c_pad) or not out_lo.is_contiguous():
+        raise ValueError(f"out_lo must be a contiguous ({qd_rows}, {c_pad}) tensor")
+    pc = 0
+    if pack:
+        if hi is None or out_hi is None:
+            raise ValueError("pack > 0 needs the hi plane and out_hi")
+        _require_cuda(hi, "hi", torch.uint8)
+        _require_cuda(out_hi, "out_hi", torch.int32)
+        pc = c_pad // pack if pack > 1 else c_pad
+        if hi.shape != (rows, pc) or not hi.is_contiguous():
+            raise ValueError(f"hi must be a contiguous ({rows}, {pc}) tensor")
+        if out_hi.shape != (qh_rows, c_pad) or not out_hi.is_contiguous():
+            raise ValueError(f"out_hi must be a contiguous ({qh_rows}, {c_pad}) tensor")
+    ptrs = [qd.data_ptr(), lo.data_ptr(), out_lo.data_ptr()]
+    ptrs += [hi.data_ptr(), out_hi.data_ptr()] if pack else []
+    if any(p % 4 for p in ptrs):
+        raise ValueError("digits, planes and outputs must be 4-byte aligned")
+    if qd_rows == 0 or m == 0:
+        return
+    build()
+    groups = qd_rows // _WARP_ROWS
+    warps = min(groups, _MAX_WARPS)
+    blocks_xz = (c_pad // 128) * -(-groups // warps)
+    splits = max(1, min(-(-_DIGIT_TARGET_BLOCKS // blocks_xz), m // _MIN_SPLIT_ROWS))
+    per_split = -(-m // splits)
+    rows_per_split = -(-per_split // 4) * 4
+    splits = -(-m // rows_per_split)
+    with torch.cuda.device(lo.device):
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
+        _check(
+            _lib.respond_digits_launch(
+                qd.data_ptr(), qd_rows, tile_k, tile_stride, row_stride, lo.data_ptr(),
+                hi.data_ptr() if pack else None, m, c_pad, pc, pack, splits, rows_per_split,
+                warps, out_lo.data_ptr(), out_hi.data_ptr() if pack else None, stream,
+            ),
+            "respond_digits",
+        )
+    LAUNCHES["respond_digits"] += 1

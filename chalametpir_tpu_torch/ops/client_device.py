@@ -1,12 +1,15 @@
-"""Device-resident client query engine: s . A on the card.
+"""Client query engines: s . A on the card.
 
-Counterpart of chalametpir_tpu/ops/client_device.py, "mk" layout (ctr PRG
-mode). A is held as four biased int8 byte planes, planes[j][c, r] =
-((A[r, c] >> 8j) & 255) - 128, laid out (4, m_pad, k_pad) — fingerprint
-major, like the ctr stream, so each slab of fingerprint columns is
-generated by the K3 kernel and recoded in place. A query is four int8
-products over the k contraction, recombined mod 2^32 with the bias
-correction 128 * sum(s) per plane:
+Counterpart of chalametpir_tpu/ops/client_device.py in ctr PRG mode: the
+resident "mk" DeviceQueryEngine and the StreamingQueryEngine. A is handled
+as four biased int8 byte planes, planes[j][c, r] = ((A[r, c] >> 8j) & 255)
+- 128, fingerprint major like the ctr stream, so each slab of fingerprint
+columns is generated by the K3 kernel and recoded in place. The resident
+engine keeps all of A's planes, (4, m_pad, k_pad); the streaming engine
+keeps none and regenerates A slab by slab for every batch, so its device
+memory is O(cols_per_step) at any m. A query is four int8 products over
+the k contraction, recombined mod 2^32 with the bias correction 128 *
+sum(s) per plane:
 
     s . A = sum_j (s . plane_j + 128 * sum(s)) << 8j   (mod 2^32)
 
@@ -56,11 +59,59 @@ class DeviceResult:
 
 
 def _recode_planes(slab: torch.Tensor) -> torch.Tensor:
-    """(r, k) int32 u32 bits -> (4, r, k) int8 biased byte planes."""
-    return torch.stack([(((slab >> (8 * j)) & 255) - 128).to(torch.int8) for j in range(4)])
+    """(r, k) int32 u32 bits -> (4, r, k) int8 biased byte planes, in one
+    pass: byte j of the little-endian word is (A >> 8j) & 255, and the
+    biased byte x - 128 is x ^ 0x80 read as int8."""
+    r, k = slab.shape
+    return (slab.view(torch.uint8).reshape(r, k, 4).permute(2, 0, 1) ^ 0x80).view(torch.int8)
 
 
-class DeviceQueryEngine:
+def _signs(codes: np.ndarray, k: int, k_pad: int, device) -> torch.Tensor:
+    """(Q, k) ternary codes {0:0, 1:+1, 2:-1} -> (rows, k_pad) int8 signs on
+    `device`, zero-padded to the _int_mm shape rules."""
+    if codes.ndim != 2 or codes.shape[1] != k:
+        raise InvalidDimensionForVector()
+    q = codes.shape[0]
+    rows = max(_MIN_ROWS, -(-q // 8) * 8)
+    signs = np.zeros((rows, k_pad), np.int8)
+    signs[:q, :k] = np.where(codes == 2, -1, codes).astype(np.int8)
+    return torch.from_numpy(signs).to(device)
+
+
+def _plane_products(s: torch.Tensor, planes: torch.Tensor, q: int) -> torch.Tensor:
+    """(rows, k_pad) signs x (4, n, k_pad) byte planes -> (q, n) int32 u32
+    bits of s . A over those n fingerprint columns."""
+    bias = 128 * s[:q].sum(dim=1, dtype=torch.int64)[:, None]
+    acc = None
+    for j in range(4):
+        dots = torch._int_mm(s, planes[j].t())[:q].to(torch.int64)
+        term = ((dots + bias) & 0xFFFFFFFF) << (8 * j)
+        acc = term if acc is None else acc + term
+    return _wrap_i32(acc)
+
+
+class _QueryEngine:
+    """The s . A surface the base Client calls; an engine sets k and m and
+    implements matvec_batch_async."""
+
+    k: int
+    m: int
+
+    def matvec(self, codes: np.ndarray) -> np.ndarray:
+        """(k,) int8 ternary codes {0:0, 1:+1, 2:-1} -> (m,) uint32 s . A."""
+        if codes.shape != (self.k,):
+            raise InvalidDimensionForVector()
+        return self.matvec_batch(codes[None, :])[0]
+
+    def matvec_batch(self, codes: np.ndarray) -> np.ndarray:
+        """(Q, k) ternary codes -> (Q, m) uint32."""
+        return np.asarray(self.matvec_batch_async(codes))[:, : self.m].astype(np.uint32)
+
+    def matvec_batch_async(self, codes: np.ndarray) -> DeviceResult:
+        raise NotImplementedError
+
+
+class DeviceQueryEngine(_QueryEngine):
     """Holds A's byte planes on the device and runs s . A per query batch."""
 
     def __init__(self, planes: torch.Tensor, k: int, m: int):
@@ -91,9 +142,9 @@ class DeviceQueryEngine:
             free, _ = torch.cuda.mem_get_info(device)
             if need + _HEADROOM_BYTES > free:
                 raise AcceleratorError(
-                    f"client A planes need {need / 2**30:.1f} GiB, {free / 2**30:.1f} GiB free; "
-                    "the streaming ctr engine that regenerates A per batch is not ported yet "
-                    "(ROADMAP Queue 1)"
+                    f"resident client A planes need {need / 2**30:.1f} GiB, "
+                    f"{free / 2**30:.1f} GiB free; use StreamingQueryEngine, which "
+                    "regenerates A per batch in O(cols_per_step) device memory"
                 )
         seed_words = prg_torch.seed_to_words(seed)
         planes = torch.zeros((4, m_pad, k_pad), dtype=torch.int8, device=device)
@@ -105,30 +156,54 @@ class DeviceQueryEngine:
         # positions, sliced off by the callers
         return cls(planes, k, m)
 
-    def matvec(self, codes: np.ndarray) -> np.ndarray:
-        """(k,) int8 ternary codes {0:0, 1:+1, 2:-1} -> (m,) uint32 s . A."""
-        if codes.shape != (self.k,):
-            raise InvalidDimensionForVector()
-        return self.matvec_batch(codes[None, :])[0]
-
-    def matvec_batch(self, codes: np.ndarray) -> np.ndarray:
-        """(Q, k) ternary codes -> (Q, m) uint32."""
-        return np.asarray(self.matvec_batch_async(codes))[:, : self.m].astype(np.uint32)
-
     def matvec_batch_async(self, codes: np.ndarray) -> DeviceResult:
         """Dispatch the batched matvec and return without waiting, so the
         caller overlaps its host work with the device products."""
-        if codes.ndim != 2 or codes.shape[1] != self.k:
-            raise InvalidDimensionForVector()
+        s = _signs(codes, self.k, self.k_pad, self.device)
+        return DeviceResult(_plane_products(s, self._planes, codes.shape[0]))
+
+
+class StreamingQueryEngine(_QueryEngine):
+    """Drop-in for DeviceQueryEngine when A's planes would not fit: every
+    batch regenerates A in slabs of `cols_per_step` fingerprint columns
+    (K3 kernel), recodes each slab to byte planes and folds its products
+    into the output. Nothing of A outlives a slab. Same matvec surface."""
+
+    def __init__(self, seed: bytes, m: int, device, cols_per_step: int = 65536):
+        if cols_per_step <= 0 or cols_per_step % 8:
+            raise ValueError("cols_per_step must be a positive multiple of 8")
+        self.k = LWE_DIMENSION
+        self.k_pad = -(-self.k // 8) * 8
+        self.m = m
+        self._device = torch.device(device)
+        self._seed_words = prg_torch.seed_to_words(seed)
+        self.cols_per_step = cols_per_step
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def device_bytes(self) -> int:
+        """Device bytes held between batches: none."""
+        return 0
+
+    def matvec_batch_async(self, codes: np.ndarray) -> DeviceResult:
+        """Dispatch every slab's generation and products and return without
+        waiting. The result has m rounded up to 8 columns (the _int_mm
+        width rule); the columns past m hold PRG output, sliced off by the
+        callers. The last slab is only as wide as the columns left."""
+        s = _signs(codes, self.k, self.k_pad, self.device)
         q = codes.shape[0]
-        rows = max(_MIN_ROWS, -(-q // 8) * 8)
-        signs = np.zeros((rows, self.k_pad), np.int8)
-        signs[:q, : self.k] = np.where(codes == 2, -1, codes).astype(np.int8)
-        s = torch.from_numpy(signs).to(self.device)
-        bias = 128 * s[:q].sum(dim=1, dtype=torch.int64)[:, None]
-        acc = None
-        for j in range(4):
-            dots = torch._int_mm(s, self._planes[j].t())[:q].to(torch.int64)
-            term = ((dots + bias) & 0xFFFFFFFF) << (8 * j)
-            acc = term if acc is None else acc + term
-        return DeviceResult(_wrap_i32(acc))
+        m_out = -(-self.m // 8) * 8
+        out = torch.empty((q, m_out), dtype=torch.int32, device=self.device)
+        # one planes buffer for every slab; its k padding stays zero
+        step = self.cols_per_step
+        planes = torch.zeros((4, min(step, m_out), self.k_pad), dtype=torch.int8, device=self.device)
+        for c0 in range(0, m_out, step):
+            ncols = min(step, m_out - c0)
+            slab = prg_torch.expand_fp_slab(self._seed_words, c0, ncols, self.k, self.device)
+            planes[:, :ncols, : self.k] = _recode_planes(slab)
+            del slab  # free it before the next slab is generated
+            out[:, c0 : c0 + ncols] = _plane_products(s, planes[:, :ncols], q)
+        return DeviceResult(out)

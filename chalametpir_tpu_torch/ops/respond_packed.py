@@ -93,17 +93,24 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
+def hi_fields(hi: torch.Tensor, pack: int) -> torch.Tensor:
+    """(rows, pc) uint8 hi plane -> (rows, c_pad) int32 fields in natural
+    column order (pack == 1: the bytes themselves)."""
+    h = hi.to(torch.int32)
+    if pack == 1:
+        return h
+    # field j of word t is column j*pc + t: concatenate the field blocks
+    bits = 8 // pack
+    return torch.cat([(h >> (bits * j)) & ((1 << bits) - 1) for j in range(pack)], dim=1)
+
+
 def unpack_elements(lo: torch.Tensor, hi: torch.Tensor | None, b: int) -> torch.Tensor:
     """(rows, c_pad) int32 element values el = (lo + 128) + (hi << 8)."""
     el = lo.to(torch.int32) + 128
     if hi is None:
         return el
-    pack, bits, _ = pack_geometry(b, lo.shape[1])
-    h = hi.to(torch.int32)
-    if pack > 1:
-        # field j of word t is column j*pc + t: concatenate the field blocks
-        h = torch.cat([(h >> (bits * j)) & ((1 << bits) - 1) for j in range(pack)], dim=1)
-    return el + (h << 8)
+    pack, _, _ = pack_geometry(b, lo.shape[1])
+    return el + (hi_fields(hi, pack) << 8)
 
 
 # rows per float64 product: each term is < 2^16 * 2^14, so partial sums of

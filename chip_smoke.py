@@ -4,15 +4,28 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's CUDA kernels from csrc/, checks each against its plain
-PyTorch version bit for bit, then drives the serving path through the
-public entry points (Server.setup, Client.setup, client.query,
-server.respond, client.process_response, respond_batch) at 2^20 entries
-of 32-byte keys and 1 kB values made from --seed, arity 3 (the
-reference's headline configuration), and checks every decoded value. Prints progress lines, then one JSON line
-with each kernel's launches on the main path, its error against the
-plain version and both times, then the card's name and power limit, and
-last `{"ok": true, "device": {...}}`. Any failure raises and exits
-non-zero before the last line; so does a machine without CUDA.
+PyTorch version bit for bit, then drives three paths, each with the
+launch counts set to 0 just before it and read just after:
+
+- phases 4-5, the serving path through the public entry points
+  (Server.setup, Client.setup, client.query, server.respond,
+  client.process_response, respond_batch) at 2^20 entries of 32-byte keys
+  and 1 kB values made from --seed, arity 3 (the reference's headline
+  configuration), every decoded value checked;
+- phases 6-7, the digit-layout respond kernel: against its plain version
+  at small shapes, then the scan diagnostic
+  (chalametpir_tpu_torch.diag.scan_qd) at the planes of 2^20-2^23 entries;
+- phase 8, the same serving path at 2^21 entries, where Client.setup
+  streams A per batch (StreamingQueryEngine), every decoded value checked;
+  then, for the cost of that choice, a client on the resident engine
+  (DeviceQueryEngine, 16.7 GB of A planes) beside it: same s . A bit for
+  bit, its query() wall and both engines' device time per batch.
+
+Prints progress lines and each phase's wall time, then one JSON line with
+each kernel's launches on its path, its error against the plain version
+and both times, then the card's name and power limit, and last
+`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero
+before the last line; so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -27,9 +40,13 @@ import time
 import numpy as np
 
 NUM_ENTRIES, VALUE_LEN, ARITY = 1 << 20, 1024, 3
+STREAMING_ENTRIES = 1 << 21  # past the resident client planes' budget
 SOURCES = {
     "ctr_keccak": ("chalametpir_tpu_torch/csrc/ctr_keccak.cu", "chalametpir_tpu/ops/prg_jax.py:144"),
     "respond_packed": ("chalametpir_tpu_torch/csrc/respond_packed.cu", "chalametpir_tpu/ops/respond_pallas.py:184"),
+    "respond_digits": ("chalametpir_tpu_torch/csrc/respond_digits.cu",
+                       "scripts/diag_scan_qdlayout.py:57 (K4), scripts/diag_scan_qdsweep.py:81 (K5), "
+                       "scripts/diag_scan_qdsweep.py:97 (K6)"),
 }
 
 
@@ -57,21 +74,27 @@ def build_db(n: int, value_len: int, seed: int) -> dict[bytes, bytes]:
     return db
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median device time of fn() in ms, one CUDA event pair per call."""
-    import torch
+def query(client, key: bytes) -> bytes:
+    """client.query, retried on the protocol's rare indicator overflow."""
+    from chalametpir_tpu_torch import ArithmeticOverflowAddingQueryIndicator
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    while True:
+        try:
+            return client.query(key)
+        except ArithmeticOverflowAddingQueryIndicator:
+            continue
+
+
+def require_launched(names, what: str) -> dict:
+    """The launch counts since the last reset; raises unless each kernel
+    in `names` ran on the path."""
+    from chalametpir_tpu_torch import kernels
+
+    launches = dict(kernels.LAUNCHES)
+    missing = [name for name in names if not launches[name]]
+    if missing:
+        raise AssertionError(f"{', '.join(missing)} never ran on the {what}: {launches}")
+    return launches
 
 
 class Errors:
@@ -104,13 +127,25 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    from chalametpir_tpu.models.client import RESIDENT_PLANES_MAX_BYTES
     from chalametpir_tpu.native import engine
-    from chalametpir_tpu_torch import ArithmeticOverflowAddingQueryIndicator, Client, Server, kernels
-    from chalametpir_tpu_torch.ops import prg_torch
+    from chalametpir_tpu.params import LWE_DIMENSION
+    from chalametpir_tpu_torch import Client, Server, kernels
+    from chalametpir_tpu_torch.diag import scan_qd
+    from chalametpir_tpu_torch.ops import digits, prg_torch
+    from chalametpir_tpu_torch.ops import respond_digits as rd
     from chalametpir_tpu_torch.ops import respond_packed as rp
+    from chalametpir_tpu_torch.ops.client_device import DeviceQueryEngine, StreamingQueryEngine
 
     dev = torch.device("cuda")
-    t_all = time.perf_counter()
+    cuda_ms = scan_qd.cuda_ms  # one timing definition for every ms printed
+    t_all = t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"{name} wall {now - t_phase:.1f} s")
+        t_phase = now
 
     # -- phase 0: environment ------------------------------------------------
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -121,6 +156,7 @@ def main(argv=None) -> int:
 
     # -- phase 1: build ------------------------------------------------------
     log(f"phase 1 build: {kernels.build():.1f} s")
+    phase_done("phase 1")
 
     errors = Errors()
     rng = np.random.default_rng(args.seed)
@@ -139,6 +175,7 @@ def main(argv=None) -> int:
     slab = prg_torch.expand_fp_slab(words, 97, 1024, 1774, dev)  # starts 22 words into a block
     errors.check("ctr_keccak", slab.cpu(), prg_torch.expand_fp_slab(words, 97, 1024, 1774, "cpu"),
                  "mid-block slab vs plain on the host")
+    phase_done("phase 2")
 
     # -- phase 3: K1/K2 against the plain version ----------------------------
     m, c = 30001, 1000  # multiples of no tile
@@ -152,6 +189,7 @@ def main(argv=None) -> int:
                          rp.respond_packed_ref(queries, db_planes.lo, db_planes.hi, b, c),
                          f"b={b} pack={rp.pack_geometry(b, 1024)[0]} Q={q} m={m} c={c}")
         del db_planes
+    phase_done("phase 3")
 
     # -- phase 4: the slice ----------------------------------------------------
     n = NUM_ENTRIES
@@ -175,12 +213,7 @@ def main(argv=None) -> int:
     client_s = time.perf_counter() - t0
     respond_ms = []
     for key in probe[:16]:
-        while True:
-            try:
-                qb = client.query(key)
-                break
-            except ArithmeticOverflowAddingQueryIndicator:
-                continue
+        qb = query(client, key)
         t0 = time.perf_counter()
         rb = server.respond(qb)
         respond_ms.append((time.perf_counter() - t0) * 1e3)
@@ -197,14 +230,13 @@ def main(argv=None) -> int:
         if client.process_response(key, header + row.astype("<u4").tobytes()) != db[key]:
             raise AssertionError("batched query decoded a wrong value")
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel never ran on the main path: {launches}")
+    launches = require_launched(("ctr_keccak", "respond_packed"), "2^20 serving path")
     planes = server.planes
     if planes.lo.device.type != "cuda" or client._engine.device.type != "cuda":
         raise AssertionError("planes are not on the card")
     log(f"  server setup {setup_s:.2f} s, phases {server.setup_stats['phases_s']}, "
-        f"upload {server.setup_stats['upload_bytes']} B; client setup {client_s:.2f} s")
+        f"upload {server.setup_stats['upload_bytes']} B; client setup {client_s:.2f} s "
+        f"({client.setup_stats['engine']} engine)")
     log(f"  16 single queries and a batch of {len(batch_keys)} decoded correctly; "
         f"launches {launches}")
     log(f"  server.respond median {statistics.median(respond_ms):.3f} ms (Q=1, host wall, "
@@ -212,7 +244,8 @@ def main(argv=None) -> int:
     log(f"  device bytes: server planes {planes.device_bytes}, client A planes "
         f"{client._engine.device_bytes}; m={planes.num_rows} c={planes.num_cols} "
         f"b={planes.mat_elem_bit_len}")
-    del db
+    del db, client, server
+    phase_done("phase 4")
 
     # -- phase 5: kernel vs plain at the main path's shapes -------------------
     ms, plain_ms = {}, {}
@@ -242,6 +275,132 @@ def main(argv=None) -> int:
     errors.check("respond_packed", fold(), fold_ref(), f"hint fold 1774 x {cc} x {ncols}")
     k, p = cuda_ms(fold, 3), cuda_ms(fold_ref, 2)
     log(f"  hint fold chunk 1774 x {cc} x {ncols}: kernel {k:.3f} ms, plain {p:.3f} ms")
+    del planes, queries, a_slab, lo_c, hi_c, k_fn, p_fn, fold, fold_ref
+    torch.cuda.empty_cache()
+    phase_done("phase 5")
+
+    # -- phase 6: the digit kernel (K4-K6) against its plain version -----------
+    m, c = 30001, 1000
+    for b in (8, 9, 10, 12, 14):
+        mat = rng.integers(0, 1 << b, size=(m, c), dtype=np.uint32)
+        db_planes = rp.build_packed_db(mat, b, dev)
+        lo, hi = db_planes.lo, db_planes.hi
+        pack = rp.pack_geometry(b, lo.shape[1])[0]
+        for q in (8, 16):  # 32 and 64 digit rows
+            queries = torch.from_numpy(
+                rng.integers(0, 1 << 32, size=(q, m), dtype=np.uint32).view(np.int32)).to(dev)
+            want = rp.respond_packed_ref(queries, lo, hi, b, c)
+            qd2, _ = digits.prepare_query_digits(queries, lo.shape[0])
+            want_lo, want_hi = rd.respond_digits_ref(qd2, lo, hi, pack)
+            for layout in rd.LAYOUTS:
+                what = f"b={b} pack={pack} qd_rows={qd2.shape[0]} {layout} m={m} c={c}"
+                out_lo, out_hi = rd.respond_digits(qd2 if layout == "2d" else rd.to_3d(qd2), lo, hi, pack)
+                errors.check("respond_digits", out_lo, want_lo, f"{what}: out_lo")
+                if pack:
+                    errors.check("respond_digits", out_hi, want_hi, f"{what}: out_hi")
+                errors.check("respond_digits", rd.respond_batch_digits(queries, db_planes, layout),
+                             want, f"{what}: recombined vs u32 plain")
+        del db_planes, lo, hi
+    phase_done("phase 6")
+
+    # -- phase 7: the scan diagnostic, the digit kernel's path -----------------
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    scan = scan_qd.run(seed=args.seed, log=lambda line: log(f"  {line}"))
+    torch.cuda.synchronize()
+    scan_launches = require_launched(("respond_digits", "respond_packed"), "scan diagnostic")
+    launches["respond_digits"] = scan_launches["respond_digits"]
+    row = next(r for r in scan["rows"] if r["height"] == 20 and r["layout"] == "3d")
+    ms["respond_digits"], plain_ms["respond_digits"] = row["ms"], row["plain_ms"]
+    log(f"  every height bit-exact; launches {scan_launches}")
+    phase_done("phase 7")
+
+    # -- phase 8: the streaming client at 2^21 entries -------------------------
+    n = STREAMING_ENTRIES
+    t0 = time.perf_counter()
+    db = build_db(n, VALUE_LEN, args.seed + 1)
+    log(f"phase 8 streaming: {n} entries x {VALUE_LEN} B values built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pir_seed = rng.bytes(32)
+    keys = list(db)
+    probe = [keys[int(i)] for i in rng.choice(n, size=4 + 64, replace=False)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    server, hint, fparams = Server.setup(pir_seed, db, arity=ARITY, prg_mode="ctr",
+                                         rng=rng, device=dev)
+    setup_s = time.perf_counter() - t0
+    server_k3 = kernels.LAUNCHES["ctr_keccak"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    client = Client.setup(pir_seed, hint, fparams, prg_mode="ctr", device=dev)
+    client_s = time.perf_counter() - t0
+    m = server.num_query_cols
+    engine_name = client.setup_stats["engine"]
+    log(f"  Client.setup picked the {engine_name} engine ({type(client._engine).__name__}): "
+        f"resident A planes would be 4 * {m} * {LWE_DIMENSION} = {4 * m * LWE_DIMENSION} B "
+        f"> RESIDENT_PLANES_MAX_BYTES {RESIDENT_PLANES_MAX_BYTES}")
+    if engine_name != "streaming" or not isinstance(client._engine, StreamingQueryEngine):
+        raise AssertionError(f"Client.setup at 2^21 picked the {engine_name} engine")
+    query_ms, respond_ms = [], []
+    for key in probe[:4]:
+        t0 = time.perf_counter()
+        qb = query(client, key)
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        rb = server.respond(qb)
+        respond_ms.append((time.perf_counter() - t0) * 1e3)
+        if client.process_response(key, rb) != db[key]:
+            raise AssertionError("2^21 single query decoded a wrong value")
+    batch_keys = probe[4:]
+    t0 = time.perf_counter()
+    client.prepare_queries(len(batch_keys))
+    prepare_s = time.perf_counter() - t0
+    qmat = np.stack([np.frombuffer(qb[8:], "<u4") for qb in client.query_batch(batch_keys)])
+    resp = server.respond_batch(qmat)
+    header = np.array([1, resp.shape[1]], "<u4").tobytes()
+    for key, row in zip(batch_keys, resp):
+        if client.process_response(key, header + row.astype("<u4").tobytes()) != db[key]:
+            raise AssertionError("2^21 batched query decoded a wrong value")
+    torch.cuda.synchronize()
+    stream_launches = require_launched(("ctr_keccak", "respond_packed"), "2^21 streaming path")
+    client_k3 = stream_launches["ctr_keccak"] - server_k3
+    if client_k3 <= 0:
+        raise AssertionError("the streaming client never launched the ctr Keccak kernel")
+    log(f"  server setup {setup_s:.2f} s, phases {server.setup_stats['phases_s']}; "
+        f"client setup {client_s:.3f} s; m={m} b={server.mat_elem_bit_len}")
+    log(f"  4 single queries and a prepared batch of {len(batch_keys)} decoded correctly; "
+        f"query() wall {', '.join(f'{t:.1f}' for t in query_ms)} ms; server.respond median "
+        f"{statistics.median(respond_ms):.3f} ms; prepare_queries({len(batch_keys)}) {prepare_s:.3f} s")
+    log(f"  launches {stream_launches}, of which the client's K3 {client_k3}; device peak during "
+        f"the client's work {torch.cuda.max_memory_allocated(dev)} B, server planes "
+        f"{server.planes.device_bytes} B")
+    # the resident engine at the same m, which the rule turned down
+    t0 = time.perf_counter()
+    resident = Client(None, client._hint_mat_m, client._filter, seed=pir_seed, prg_mode="ctr",
+                      device_engine=DeviceQueryEngine.from_seed_ctr(pir_seed, m, dev))
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t0
+    resident_query_ms = []
+    for key in probe[:4]:
+        t0 = time.perf_counter()
+        qb = query(resident, key)
+        resident_query_ms.append((time.perf_counter() - t0) * 1e3)
+        if resident.process_response(key, server.respond(qb)) != db[key]:
+            raise AssertionError("2^21 resident-engine query decoded a wrong value")
+    log(f"  resident engine beside it: {resident._engine.device_bytes} B of A planes built in "
+        f"{resident_s:.3f} s; query() wall {', '.join(f'{t:.1f}' for t in resident_query_ms)} ms")
+    for q in (1, 64):
+        codes = rng.integers(0, 3, size=(q, LWE_DIMENSION)).astype(np.int8)
+        if not np.array_equal(client._engine.matvec_batch(codes), resident._engine.matvec_batch(codes)):
+            raise AssertionError(f"streaming and resident s.A differ at Q={q}")
+        k = cuda_ms(lambda: client._engine.matvec_batch_async(codes), 3)
+        r = cuda_ms(lambda: resident._engine.matvec_batch_async(codes), 5)
+        log(f"  s.A, Q={q}, equal on both engines: streaming {k:.2f} ms of device time per batch "
+            f"({-(-m // client._engine.cols_per_step)} slabs), resident {r:.2f} ms")
+    del db, client, resident, server
+    torch.cuda.empty_cache()
+    phase_done("phase 8")
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -1,5 +1,7 @@
 """The port never needs jax: a full CPU round trip through
-chalametpir_tpu_torch runs in a subprocess where importing jax raises."""
+chalametpir_tpu_torch, with the resident and the streaming client engine,
+the digit-layout respond and the scan diagnostic's checks, runs in a
+subprocess where importing jax raises."""
 
 import os
 import subprocess
@@ -17,9 +19,13 @@ class _Block:
 sys.meta_path.insert(0, _Block())
 
 import numpy as np
+import torch
 import chalametpir_tpu_torch
 from chalametpir_tpu_torch import Client, Server, convert, kernels
-from chalametpir_tpu_torch.ops import client_device, prg_torch, respond_packed
+from chalametpir_tpu_torch.diag import scan_qd
+from chalametpir_tpu_torch.ops import client_device, digits, prg_torch, respond_digits, respond_packed
+from chalametpir_tpu_torch.ops.client_device import StreamingQueryEngine
+import chalametpir_tpu.models.client as host_client
 from chalametpir_tpu.errors import ArithmeticOverflowAddingQueryIndicator
 from chalametpir_tpu.utils import generate_random_kv_database
 
@@ -27,15 +33,28 @@ rng = np.random.default_rng(5)
 db = generate_random_kv_database(300, rng=rng, value_byte_len=(1, 64))
 seed = rng.bytes(32)
 server, hint, fparams = Server.setup(seed, db, rng=rng, device="cpu")
-client = Client.setup(seed, hint, fparams, device="cpu")
-for key in list(db)[:3]:
-    while True:
-        try:
-            q = client.query(key)
-            break
-        except ArithmeticOverflowAddingQueryIndicator:
-            continue
-    assert client.process_response(key, server.respond(q)) == db[key]
+resident = Client.setup(seed, hint, fparams, device="cpu")
+host_client.RESIDENT_PLANES_MAX_BYTES = 0
+streaming = Client.setup(seed, hint, fparams, device="cpu")
+assert isinstance(streaming._engine, StreamingQueryEngine)
+for client in (resident, streaming):
+    for key in list(db)[:3]:
+        while True:
+            try:
+                q = client.query(key)
+                break
+            except ArithmeticOverflowAddingQueryIndicator:
+                continue
+        assert client.process_response(key, server.respond(q)) == db[key]
+queries = torch.from_numpy(rng.integers(0, 1 << 32, size=(3, server.num_query_cols),
+                                        dtype=np.uint32).view(np.int32))
+for layout in respond_digits.LAYOUTS:
+    assert torch.equal(respond_digits.respond_batch_digits(queries, server.planes, layout),
+                       respond_packed.respond_batch_packed(queries, server.planes))
+geo = scan_qd.Geometry(0, 9, 3000, 200)
+gen = torch.Generator().manual_seed(1)
+scan_qd.check(scan_qd.synthetic_planes(geo, "cpu", gen),
+              torch.randint(-(1 << 31), 1 << 31, (8, geo.m), dtype=torch.int32, generator=gen))
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 print("NO_JAX_OK")
 """
