@@ -7,8 +7,6 @@ with the packed layout, or from the archive its `save` writes.
 
 from __future__ import annotations
 
-import ast
-
 import numpy as np
 import torch
 
@@ -42,12 +40,6 @@ def server_from_jax(server, device) -> Server:
 
 
 def server_from_jax_archive(path: str, device) -> Server:
-    """Port server from an archive written by chalametpir_tpu.Server.save."""
-    with np.load(path) as archive:
-        meta = ast.literal_eval(str(archive["meta"][0]))
-        if meta["backend"] != "jax" or meta["layout"] != "packed":
-            raise NotImplementedError("only packed-layout archives convert")
-        return _server(planes_from_numpy(
-            archive["lo"], archive["hi"] if "hi" in archive else None,
-            meta["mat_elem_bit_len"], meta["num_query_cols"], meta["num_response_cols"], device,
-        ))
+    """Port server from an archive written by chalametpir_tpu.Server.save
+    (any of its layouts): `Server.load` reads them all."""
+    return Server.load(path, device)

@@ -1,15 +1,17 @@
 """Client query engines: s . A on the card.
 
-Counterpart of chalametpir_tpu/ops/client_device.py in ctr PRG mode: the
-resident "mk" DeviceQueryEngine and the StreamingQueryEngine. A is handled
-as four biased int8 byte planes, planes[j][c, r] = ((A[r, c] >> 8j) & 255)
-- 128, fingerprint major like the ctr stream, so each slab of fingerprint
+Counterpart of chalametpir_tpu/ops/client_device.py: the resident
+DeviceQueryEngine and the StreamingQueryEngine. A is handled as four
+biased int8 byte planes, planes[j][c, r] = ((A[r, c] >> 8j) & 255) - 128,
+fingerprint major like the ctr stream, so each slab of fingerprint
 columns is generated by the K3 kernel and recoded in place. The resident
-engine keeps all of A's planes, (4, m_pad, k_pad); the streaming engine
-keeps none and regenerates A slab by slab for every batch, so its device
-memory is O(cols_per_step) at any m. A query is four int8 products over
-the k contraction, recombined mod 2^32 with the bias correction 128 *
-sum(s) per plane:
+engine keeps all of A's planes, (4, m_pad, k_pad), built from the seed on
+the device (ctr mode) or from the host XOF's row blocks (stream mode,
+`from_host_rows`: the same planes, so one product serves both modes); the
+streaming engine (ctr mode) keeps none and regenerates A slab by slab for
+every batch, so its device memory is O(cols_per_step) at any m. A query
+is four int8 products over the k contraction, recombined mod 2^32 with
+the bias correction 128 * sum(s) per plane:
 
     s . A = sum_j (s . plane_j + 128 * sum(s)) << 8j   (mod 2^32)
 
@@ -128,14 +130,12 @@ class DeviceQueryEngine(_QueryEngine):
     def device_bytes(self) -> int:
         return self._planes.numel()
 
-    @classmethod
-    def from_seed_ctr(cls, seed: bytes, m: int, device, cols_per_step: int = 32768) -> "DeviceQueryEngine":
-        """Generate A's planes on `device` (ctr PRG mode): each step
-        generates a contiguous ctr slab of `cols_per_step` fingerprint
-        columns and recodes it into the planes."""
-        device = torch.device(device)
-        k = LWE_DIMENSION
-        k_pad = -(-k // 8) * 8
+    @staticmethod
+    def _empty_planes(m: int, device, hint: str) -> torch.Tensor:
+        """Zeroed (4, m_pad, k_pad) planes on `device`; raises when they and
+        the headroom do not fit the card's free memory (`hint` says what
+        to do instead)."""
+        k_pad = -(-LWE_DIMENSION // 8) * 8
         m_pad = -(-m // 8) * 8  # _int_mm wants the output width a multiple of 8
         need = 4 * m_pad * k_pad
         if device.type == "cuda":
@@ -143,17 +143,55 @@ class DeviceQueryEngine(_QueryEngine):
             if need + _HEADROOM_BYTES > free:
                 raise AcceleratorError(
                     f"resident client A planes need {need / 2**30:.1f} GiB, "
-                    f"{free / 2**30:.1f} GiB free; use StreamingQueryEngine, which "
-                    "regenerates A per batch in O(cols_per_step) device memory"
+                    f"{free / 2**30:.1f} GiB free; {hint}"
                 )
+        return torch.zeros((4, m_pad, k_pad), dtype=torch.int8, device=device)
+
+    @classmethod
+    def from_seed_ctr(cls, seed: bytes, m: int, device, cols_per_step: int = 32768) -> "DeviceQueryEngine":
+        """Generate A's planes on `device` (ctr PRG mode): each step
+        generates a contiguous ctr slab of `cols_per_step` fingerprint
+        columns and recodes it into the planes."""
+        device = torch.device(device)
+        k = LWE_DIMENSION
+        planes = cls._empty_planes(
+            m, device, "use StreamingQueryEngine, which regenerates A per batch in "
+            "O(cols_per_step) device memory",
+        )
+        m_pad = planes.shape[1]
         seed_words = prg_torch.seed_to_words(seed)
-        planes = torch.zeros((4, m_pad, k_pad), dtype=torch.int8, device=device)
         for c0 in range(0, m_pad, cols_per_step):
             ncols = min(cols_per_step, m_pad - c0)
             slab = prg_torch.expand_fp_slab(seed_words, c0, ncols, k, device)
             planes[:, c0 : c0 + ncols, :k] = _recode_planes(slab)
         # fingerprint columns m..m_pad hold PRG output: they are output
         # positions, sliced off by the callers
+        return cls(planes, k, m)
+
+    @classmethod
+    def from_host_rows(cls, row_blocks, m: int, device) -> "DeviceQueryEngine":
+        """Build A's planes on `device` from stream-mode A, which the host
+        XOF emits row-major: `row_blocks` yields (r0, (r, m) uint32 block)
+        covering LWE rows 0..k in order, as `prg.iter_row_blocks` does.
+        Each block is uploaded and recoded on the device into plane
+        columns r0..r0+r (r-byte runs at stride k_pad), so the host holds
+        only the blocks in flight, never all of A; run the iterator ahead
+        with `prg.prefetch_iter` and the XOF overlaps upload and recode."""
+        device = torch.device(device)
+        k = LWE_DIMENSION
+        planes = cls._empty_planes(m, device, "stream-mode A has no streaming engine")
+        rows = 0
+        for r0, block in row_blocks:
+            r = block.shape[0]
+            if block.shape != (r, m) or r0 != rows or r0 + r > k:
+                raise ValueError(f"row block at {r0} of shape {block.shape}: expected row {rows}, {m} columns")
+            a = torch.from_numpy(np.ascontiguousarray(block, np.uint32).view(np.int32)).to(device)
+            planes[:, :m, r0 : r0 + r] = _recode_planes(a).transpose(1, 2)
+            rows += r
+        if rows != k:
+            raise ValueError(f"row blocks covered {rows} of {k} rows of A")
+        # fingerprint columns m..m_pad stay zero: output positions, sliced
+        # off by the callers
         return cls(planes, k, m)
 
     def matvec_batch_async(self, codes: np.ndarray) -> DeviceResult:

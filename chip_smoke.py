@@ -4,14 +4,14 @@
     python3 chip_smoke.py [--seed 0]
 
 Builds the port's CUDA kernels from csrc/, checks each against its plain
-PyTorch version bit for bit, then drives three paths, each with the
+PyTorch version bit for bit, then drives four paths, each with the
 launch counts set to 0 just before it and read just after:
 
-- phases 4-5, the serving path through the public entry points
+- phases 4-5, the ctr-mode serving path through the public entry points
   (Server.setup, Client.setup, client.query, server.respond,
-  client.process_response, respond_batch) at 2^20 entries of 32-byte keys
-  and 1 kB values made from --seed, arity 3 (the reference's headline
-  configuration), every decoded value checked;
+  client.process_response, respond_batch, client save and Client.load) at
+  2^20 entries of 32-byte keys and 1 kB values made from --seed, arity 3
+  (the reference's headline configuration), every decoded value checked;
 - phases 6-7, the digit-layout respond kernel: against its plain version
   at small shapes, then the scan diagnostic
   (chalametpir_tpu_torch.diag.scan_qd) at the planes of 2^20-2^23 entries;
@@ -19,7 +19,16 @@ launch counts set to 0 just before it and read just after:
   streams A per batch (StreamingQueryEngine), every decoded value checked;
   then, for the cost of that choice, a client on the resident engine
   (DeviceQueryEngine, 16.7 GB of A planes) beside it: same s . A bit for
-  bit, its query() wall and both engines' device time per batch.
+  bit, its query() wall and both engines' device time per batch;
+- phase 9, the reference-interop deployment, stream PRG mode (A from the
+  host XOF, as Rust peers derive it): first 2^14 entries set up on the
+  card and with the plain versions on the host, hint, filter, responses
+  and s . A equal bit for bit (9a); then the 2^20 DB of phase 4 through
+  Server.setup (A folded into the hint by the respond kernel, block by
+  block) and Client.setup, each under torch.profiler for the device's
+  busy time, single and batched queries, Server.save and Server.load,
+  and the port's TCP server and client (9b), with the ctr Keccak kernel
+  never launched.
 
 Prints progress lines and each phase's wall time, then one JSON line with
 each kernel's launches on its path, its error against the plain version
@@ -31,16 +40,21 @@ before the last line; so does a machine without CUDA.
 from __future__ import annotations
 
 import argparse
+import asyncio
+import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 NUM_ENTRIES, VALUE_LEN, ARITY = 1 << 20, 1024, 3
 STREAMING_ENTRIES = 1 << 21  # past the resident client planes' budget
+STREAM_CHECK_ENTRIES = 1 << 14  # small enough for the plain versions on the host
 SOURCES = {
     "ctr_keccak": ("chalametpir_tpu_torch/csrc/ctr_keccak.cu", "chalametpir_tpu/ops/prg_jax.py:144"),
     "respond_packed": ("chalametpir_tpu_torch/csrc/respond_packed.cu", "chalametpir_tpu/ops/respond_pallas.py:184"),
@@ -97,6 +111,48 @@ def require_launched(names, what: str) -> dict:
     return launches
 
 
+def as_i32(a) -> "torch.Tensor":
+    """A uint32 array as an int32 tensor of the same bits (on the host)."""
+    import torch
+
+    return torch.from_numpy(np.array(a, np.uint32).view(np.int32))
+
+
+def device_ms(prof) -> str:
+    """The device time a torch.profiler run recorded (its CUDA activity),
+    split into kernels and memory copies, or "not measured"."""
+    if prof is None:
+        return "not measured"
+    from torch.autograd import DeviceType
+
+    kernels_us = copies_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if e.key.startswith("Memcpy"):
+                copies_us += e.self_device_time_total
+            else:
+                kernels_us += e.self_device_time_total
+    return f"kernels {kernels_us / 1e3:.1f} ms, copies {copies_us / 1e3:.1f} ms"
+
+
+def fetch_over_tcp(server, seed: bytes, hint: bytes, fparams: bytes, keys: list, dev):
+    """Serve `server` with the port's TCP server on 127.0.0.1 (a free port)
+    and fetch `keys` through the port's client, stream mode, with a pool of
+    len(keys) prepared queries; returns (values by key, the dispatcher)."""
+    from chalametpir_tpu_torch.net.client import fetch
+    from chalametpir_tpu_torch.net.server import PirTcpServer
+
+    tcp = PirTcpServer(server, seed, hint, fparams)
+
+    async def run():
+        srv = await asyncio.start_server(tcp.handle, "127.0.0.1", 0)
+        port = srv.sockets[0].getsockname()[1]
+        async with srv:
+            return await fetch("127.0.0.1", port, keys, prg_mode="stream", device=dev, pool=len(keys))
+
+    return asyncio.run(run()), tcp._dispatcher
+
+
 class Errors:
     """Largest |kernel - plain| per kernel, over every comparison made.
     The tolerance is 0: both compute u32 words mod 2^32 exactly."""
@@ -127,15 +183,18 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    from chalametpir_tpu.core import matrix_io, prg
     from chalametpir_tpu.models.client import RESIDENT_PLANES_MAX_BYTES
     from chalametpir_tpu.native import engine
     from chalametpir_tpu.params import LWE_DIMENSION
     from chalametpir_tpu_torch import Client, Server, kernels
     from chalametpir_tpu_torch.diag import scan_qd
+    from chalametpir_tpu_torch.models.server import STREAM_BLOCK_ROWS
     from chalametpir_tpu_torch.ops import digits, prg_torch
     from chalametpir_tpu_torch.ops import respond_digits as rd
     from chalametpir_tpu_torch.ops import respond_packed as rp
     from chalametpir_tpu_torch.ops.client_device import DeviceQueryEngine, StreamingQueryEngine
+    from chalametpir_tpu_torch.utils import telemetry
 
     dev = torch.device("cuda")
     cuda_ms = scan_qd.cuda_ms  # one timing definition for every ms printed
@@ -219,6 +278,17 @@ def main(argv=None) -> int:
         respond_ms.append((time.perf_counter() - t0) * 1e3)
         if client.process_response(key, rb) != db[key]:
             raise AssertionError("single query decoded a wrong value")
+    # a client restarted from its archive answers the queries pending at save
+    pending = {key: query(client, key) for key in probe[:2]}
+    with tempfile.TemporaryDirectory() as tmp:
+        client.save(os.path.join(tmp, "client.npz"))
+        loaded = Client.load(os.path.join(tmp, "client.npz"), device=dev)
+    if loaded._engine.device.type != "cuda":
+        raise AssertionError("the loaded client's engine is not on the card")
+    for key, qb in pending.items():
+        if loaded.process_response(key, server.respond(qb)) != db[key]:
+            raise AssertionError("a query pending at client.save decoded a wrong value after load")
+    del loaded
     batch_keys = probe[16:]
     client.prepare_queries(len(batch_keys))
     qmat = np.stack([np.frombuffer(qb[8:], "<u4") for qb in client.query_batch(batch_keys)])
@@ -237,13 +307,14 @@ def main(argv=None) -> int:
     log(f"  server setup {setup_s:.2f} s, phases {server.setup_stats['phases_s']}, "
         f"upload {server.setup_stats['upload_bytes']} B; client setup {client_s:.2f} s "
         f"({client.setup_stats['engine']} engine)")
-    log(f"  16 single queries and a batch of {len(batch_keys)} decoded correctly; "
-        f"launches {launches}")
+    log(f"  16 single queries, 2 pending across client.save / Client.load and a batch of "
+        f"{len(batch_keys)} decoded correctly; launches {launches}")
     log(f"  server.respond median {statistics.median(respond_ms):.3f} ms (Q=1, host wall, "
         f"wire parse included); respond_batch {batch_ms:.3f} ms per batch of {len(batch_keys)}")
     log(f"  device bytes: server planes {planes.device_bytes}, client A planes "
         f"{client._engine.device_bytes}; m={planes.num_rows} c={planes.num_cols} "
         f"b={planes.mat_elem_bit_len}")
+    db20 = db  # phase 9 serves the same DB in stream mode
     del db, client, server
     phase_done("phase 4")
 
@@ -401,6 +472,144 @@ def main(argv=None) -> int:
     del db, client, resident, server
     torch.cuda.empty_cache()
     phase_done("phase 8")
+
+    # -- phase 9a: stream mode on the card against the plain versions --------
+    n = STREAM_CHECK_ENTRIES
+    db = build_db(n, VALUE_LEN, args.seed + 2)
+    pir_seed = rng.bytes(32)
+    built = {}
+    for where in (dev, "cpu"):
+        server, hint, fparams = Server.setup(pir_seed, db, arity=ARITY, rng=np.random.default_rng(args.seed),
+                                             device=where)
+        built[where] = server, hint, fparams, Client.setup(pir_seed, hint, fparams, device=where)
+    (gpu_server, hint, fparams, gpu_client), (cpu_server, cpu_hint, cpu_fparams, cpu_client) = built.values()
+    errors.check("respond_packed", as_i32(matrix_io.matrix_from_bytes(hint)),
+                 as_i32(matrix_io.matrix_from_bytes(cpu_hint)), f"stream hint, {n} entries, card vs plain")
+    if (hint, fparams) != (cpu_hint, cpu_fparams):
+        raise AssertionError("stream-mode hint or filter bytes differ between the card and the plain versions")
+    m = gpu_server.num_query_cols
+    for q in (1, 64):
+        queries = rng.integers(0, 1 << 32, size=(q, m), dtype=np.uint32)
+        errors.check("respond_packed", as_i32(gpu_server.respond_batch(queries)),
+                     as_i32(cpu_server.respond_batch(queries)), f"stream respond_batch Q={q}, card vs plain")
+        codes = rng.integers(0, 3, size=(q, LWE_DIMENSION)).astype(np.int8)
+        if not np.array_equal(gpu_client._engine.matvec_batch(codes), cpu_client._engine.matvec_batch(codes)):
+            raise AssertionError(f"stream-mode s.A differs between the card and the host at Q={q}")
+    log(f"  {n} entries, m={m}: s.A equal at Q=1 and 64 on both engines "
+        f"(client planes {gpu_client._engine.device_bytes} B built from the host XOF's row blocks)")
+    del db, built, gpu_server, gpu_client, cpu_server, cpu_client
+    phase_done("phase 9a")
+
+    # -- phase 9b: the reference-interop deployment at 2^20 ------------------
+    n, db = NUM_ENTRIES, db20
+    pir_seed = rng.bytes(32)
+    keys = list(db)
+    probe = [keys[int(i)] for i in rng.choice(n, size=16 + 64 + 4 + 8, replace=False)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    # both setups run under torch.profiler, for the device's busy time
+    with tempfile.TemporaryDirectory() as tmp:
+        with telemetry.profile_to(os.path.join(tmp, "server")) as prof:
+            t0 = time.perf_counter()
+            server, hint, fparams = Server.setup(pir_seed, db, arity=ARITY, rng=rng, device=dev)
+            setup_s = time.perf_counter() - t0
+        server_device = device_ms(prof)
+        with telemetry.profile_to(os.path.join(tmp, "client")) as prof:
+            t0 = time.perf_counter()
+            client = Client.setup(pir_seed, hint, fparams, device=dev)
+            torch.cuda.synchronize()
+            client_s = time.perf_counter() - t0
+        client_device = device_ms(prof)
+        del prof
+    query_ms, respond_ms = [], []
+    for key in probe[:16]:
+        t0 = time.perf_counter()
+        qb = query(client, key)
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        rb = server.respond(qb)
+        respond_ms.append((time.perf_counter() - t0) * 1e3)
+        if client.process_response(key, rb) != db[key]:
+            raise AssertionError("stream-mode single query decoded a wrong value")
+    batch_keys = probe[16:80]
+    client.prepare_queries(len(batch_keys))
+    qmat = np.stack([np.frombuffer(qb[8:], "<u4") for qb in client.query_batch(batch_keys)])
+    t0 = time.perf_counter()
+    resp = server.respond_batch(qmat)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    header = np.array([1, resp.shape[1]], "<u4").tobytes()
+    for key, row in zip(batch_keys, resp):
+        if client.process_response(key, header + row.astype("<u4").tobytes()) != db[key]:
+            raise AssertionError("stream-mode batched query decoded a wrong value")
+    torch.cuda.synchronize()
+    interop_launches = require_launched(("respond_packed",), "2^20 stream-mode path")
+    if interop_launches["ctr_keccak"]:
+        raise AssertionError(f"the ctr Keccak kernel ran on the stream-mode path: {interop_launches}")
+    planes = server.planes
+    b, mrows, ncols = planes.mat_elem_bit_len, planes.num_rows, planes.num_cols
+    log(f"  server setup {setup_s:.2f} s, stats {server.setup_stats}; device busy: {server_device}")
+    log(f"  client setup {client_s:.2f} s, stats {client.setup_stats}; device busy: {client_device}")
+    log(f"  16 single queries and a prepared batch of {len(batch_keys)} decoded correctly; query() wall "
+        f"median {statistics.median(query_ms):.1f} ms (range {min(query_ms):.1f}-{max(query_ms):.1f}); "
+        f"server.respond median {statistics.median(respond_ms):.3f} ms; respond_batch {batch_ms:.3f} ms "
+        f"per batch of {len(batch_keys)}; launches {interop_launches}")
+    # the hint of the first two A row blocks against the plain version
+    r = STREAM_BLOCK_ROWS
+    a_rows = np.concatenate([blk for _, blk in itertools.islice(
+        prg.iter_row_blocks(LWE_DIMENSION, mrows, pir_seed, r, mode="stream"), 2)])
+    a_dev = as_i32(a_rows).to(dev)
+    errors.check("respond_packed", as_i32(matrix_io.matrix_from_bytes(hint)[: 2 * r]).to(dev),
+                 rp.respond_packed_ref(a_dev, planes.lo, planes.hi, b, ncols),
+                 f"stream hint rows 0-{2 * r - 1} vs plain on the card")
+    fold = lambda: rp.respond_packed_core(a_dev[:r], planes.lo, planes.hi, b, ncols)  # noqa: E731
+    fold_ref = lambda: rp.respond_packed_ref(a_dev[:r], planes.lo, planes.hi, b, ncols)  # noqa: E731
+    k, p = cuda_ms(fold, 20), cuda_ms(fold_ref, 3)
+    log(f"  stream hint fold, one block of {r} A rows over the served planes: kernel {k:.3f} ms, "
+        f"plain {p:.3f} ms; {-(-LWE_DIMENSION // r)} blocks per setup")
+    del a_dev, fold, fold_ref, planes
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "server.npz")
+        t0 = time.perf_counter()
+        server.save(path)
+        save_s = time.perf_counter() - t0
+        archive_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = Server.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if loaded.planes.lo.device.type != "cuda":
+        raise AssertionError("Server.load put the planes off the card")
+    for key in probe[80:84]:
+        qb = query(client, key)
+        rb = server.respond(qb)
+        if loaded.respond(qb) != rb:
+            raise AssertionError("the loaded server's response bytes differ")
+        if client.process_response(key, rb) != db[key]:
+            raise AssertionError("stream-mode query decoded a wrong value before save/load")
+    log(f"  Server.save {save_s:.2f} s ({archive_bytes} B archive), Server.load {load_s:.2f} s; "
+        f"4 responses byte-identical")
+    del client, server
+    torch.cuda.empty_cache()
+    tcp_keys = probe[84:]
+    t0 = time.perf_counter()
+    values, dispatcher = fetch_over_tcp(loaded, pir_seed, hint, fparams, tcp_keys, dev)
+    tcp_s = time.perf_counter() - t0
+    if [values.get(key) for key in tcp_keys] != [db[key] for key in tcp_keys]:
+        raise AssertionError("a value fetched over TCP did not decode")
+    torch.cuda.synchronize()
+    persist_launches = require_launched(("respond_packed",), "stream-mode save/load and TCP path")
+    if persist_launches["ctr_keccak"]:
+        raise AssertionError(f"the ctr Keccak kernel ran on the stream-mode path: {persist_launches}")
+    log(f"  TCP: {len(tcp_keys)} keys fetched and decoded in {tcp_s:.2f} s through the port's server and "
+        f"client (setup with the host XOF included); dispatcher batches {dispatcher.batches}, served "
+        f"{dispatcher.served}; launches {persist_launches}")
+    launches["respond_packed"] += interop_launches["respond_packed"] + persist_launches["respond_packed"]
+    del db, db20, loaded
+    torch.cuda.empty_cache()
+    phase_done("phase 9b")
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -1,7 +1,9 @@
-"""The port never needs jax: a full CPU round trip through
-chalametpir_tpu_torch, with the resident and the streaming client engine,
-the digit-layout respond and the scan diagnostic's checks, runs in a
-subprocess where importing jax raises."""
+"""The port never needs jax: full CPU round trips through
+chalametpir_tpu_torch in ctr mode (the resident and the streaming client
+engine) and in stream mode, server and client save/load, the TCP server
+and client modules, telemetry with its profiler, the digit-layout
+respond and the scan diagnostic's checks, run in a subprocess where
+importing jax raises."""
 
 import os
 import subprocess
@@ -25,27 +27,43 @@ from chalametpir_tpu_torch import Client, Server, convert, kernels
 from chalametpir_tpu_torch.diag import scan_qd
 from chalametpir_tpu_torch.ops import client_device, digits, prg_torch, respond_digits, respond_packed
 from chalametpir_tpu_torch.ops.client_device import StreamingQueryEngine
+from chalametpir_tpu_torch.net import client as net_client, server as net_server
+from chalametpir_tpu_torch.utils import telemetry
+import os, tempfile
 import chalametpir_tpu.models.client as host_client
 from chalametpir_tpu.errors import ArithmeticOverflowAddingQueryIndicator
 from chalametpir_tpu.utils import generate_random_kv_database
 
+def query(client, key):
+    while True:
+        try:
+            return client.query(key)
+        except ArithmeticOverflowAddingQueryIndicator:
+            continue
+
 rng = np.random.default_rng(5)
 db = generate_random_kv_database(300, rng=rng, value_byte_len=(1, 64))
 seed = rng.bytes(32)
-server, hint, fparams = Server.setup(seed, db, rng=rng, device="cpu")
-resident = Client.setup(seed, hint, fparams, device="cpu")
+tmp = tempfile.mkdtemp()
+with telemetry.profile_to(os.path.join(tmp, "trace")) as prof:
+    stream_server, stream_hint, stream_fparams = Server.setup(seed, db, rng=rng, device="cpu")
+assert prof is not None and os.path.exists(os.path.join(tmp, "trace", "trace.json"))
+stream_client = Client.setup(seed, stream_hint, stream_fparams, device="cpu")
+server, hint, fparams = Server.setup(seed, db, prg_mode="ctr", rng=rng, device="cpu")
+resident = Client.setup(seed, hint, fparams, prg_mode="ctr", device="cpu")
 host_client.RESIDENT_PLANES_MAX_BYTES = 0
-streaming = Client.setup(seed, hint, fparams, device="cpu")
+streaming = Client.setup(seed, hint, fparams, prg_mode="ctr", device="cpu")
 assert isinstance(streaming._engine, StreamingQueryEngine)
-for client in (resident, streaming):
+for client, srv in ((resident, server), (streaming, server), (stream_client, stream_server)):
     for key in list(db)[:3]:
-        while True:
-            try:
-                q = client.query(key)
-                break
-            except ArithmeticOverflowAddingQueryIndicator:
-                continue
-        assert client.process_response(key, server.respond(q)) == db[key]
+        assert client.process_response(key, srv.respond(query(client, key))) == db[key]
+key = list(db)[3]
+pending = query(stream_client, key)
+stream_client.save(os.path.join(tmp, "client"))
+stream_server.save(os.path.join(tmp, "server"))
+loaded = Server.load(os.path.join(tmp, "server"), device="cpu")
+assert Client.load(os.path.join(tmp, "client"), device="cpu").process_response(
+    key, loaded.respond(pending)) == db[key]
 queries = torch.from_numpy(rng.integers(0, 1 << 32, size=(3, server.num_query_cols),
                                         dtype=np.uint32).view(np.int32))
 for layout in respond_digits.LAYOUTS:
@@ -55,6 +73,8 @@ geo = scan_qd.Geometry(0, 9, 3000, 200)
 gen = torch.Generator().manual_seed(1)
 scan_qd.check(scan_qd.synthetic_planes(geo, "cpu", gen),
               torch.randint(-(1 << 31), 1 << 31, (8, geo.m), dtype=torch.int32, generator=gen))
+import shutil
+shutil.rmtree(tmp)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 print("NO_JAX_OK")
 """

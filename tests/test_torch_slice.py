@@ -47,7 +47,7 @@ def test_setup_matches_jax_and_numpy(arity, rng):
     db = generate_random_kv_database(600, rng=rng, value_byte_len=(1, 96))
     seed = rng.bytes(32)
     port, hint, fparams = Server.setup(
-        seed, db, arity=arity, rng=np.random.default_rng(7), device="cpu"
+        seed, db, arity=arity, prg_mode="ctr", rng=np.random.default_rng(7), device="cpu"
     )
     for backend in ("jax", "numpy"):
         ref, ref_hint, ref_fparams = chalametpir_tpu.Server.setup(
@@ -64,8 +64,8 @@ def test_setup_matches_jax_and_numpy(arity, rng):
 def test_round_trip_through_port_client(rng):
     db = generate_random_kv_database(500, rng=rng, value_byte_len=(900, 1024))
     seed = rng.bytes(32)
-    server, hint, fparams = Server.setup(seed, db, rng=rng, device="cpu")
-    client = Client.setup(seed, hint, fparams, device="cpu", prepared_queries=2)
+    server, hint, fparams = Server.setup(seed, db, prg_mode="ctr", rng=rng, device="cpu")
+    client = Client.setup(seed, hint, fparams, prg_mode="ctr", device="cpu", prepared_queries=2)
     assert client.uses_device
     keys = list(db)
     for key in keys[:4]:  # the first two come from the prepared pool
@@ -102,23 +102,14 @@ def test_cuda_request_without_cuda_raises(rng, monkeypatch):
         raise AssertionError("setup ran on the CPU")
 
     monkeypatch.setattr(encode_db, "from_kv_database_streaming", _no_encode)
+    monkeypatch.setattr(encode_db, "from_kv_database", _no_encode)
     db = generate_random_kv_database(50, rng=rng, value_byte_len=(1, 16))
     seed = rng.bytes(32)
-    with pytest.raises(AcceleratorError):
-        Server.setup(seed, db, device="cuda")
+    for mode in ("stream", "ctr"):
+        with pytest.raises(AcceleratorError):
+            Server.setup(seed, db, prg_mode=mode, device="cuda")
     with pytest.raises(AcceleratorError):
         Client.setup(seed, b"", b"", device="cuda")
-
-
-def test_unported_modes_raise(rng, tmp_path):
-    db = generate_random_kv_database(50, rng=rng, value_byte_len=(1, 16))
-    seed = rng.bytes(32)
-    with pytest.raises(NotImplementedError):
-        Server.setup(seed, db, prg_mode="stream", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Client.setup(seed, b"", b"", prg_mode="stream", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Client.load(str(tmp_path / "client.npz"), device="cpu")
 
 
 @pytest.mark.cuda
@@ -126,12 +117,14 @@ def test_cuda_slice_matches_cpu(cuda):
     g = np.random.default_rng(21)
     db = generate_random_kv_database(3000, rng=g, value_byte_len=(1, 200))
     seed = g.bytes(32)
-    dev, hint, fparams = Server.setup(seed, db, rng=np.random.default_rng(5), device=cuda)
-    cpu, cpu_hint, cpu_fparams = Server.setup(seed, db, rng=np.random.default_rng(5), device="cpu")
+    dev, hint, fparams = Server.setup(seed, db, prg_mode="ctr", rng=np.random.default_rng(5), device=cuda)
+    cpu, cpu_hint, cpu_fparams = Server.setup(
+        seed, db, prg_mode="ctr", rng=np.random.default_rng(5), device="cpu"
+    )
     assert (hint, fparams) == (cpu_hint, cpu_fparams)
     assert dev.planes.lo.device.type == "cuda"
     q = _queries(dev, n=5)
     assert np.array_equal(dev.respond_batch(q), cpu.respond_batch(q))
-    client = Client.setup(seed, hint, fparams, device=cuda)
+    client = Client.setup(seed, hint, fparams, prg_mode="ctr", device=cuda)
     for key in list(db)[:5]:
         assert client.process_response(key, dev.respond(_query(client, key))) == db[key]

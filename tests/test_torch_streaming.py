@@ -111,7 +111,7 @@ def test_engine_choice_matches_jax_client(over_budget, rng, monkeypatch):
 
     db = generate_random_kv_database(300, rng=rng, value_byte_len=(1, 48))
     seed = rng.bytes(32)
-    server, hint, fparams = Server.setup(seed, db, rng=rng, device="cpu")
+    server, hint, fparams = Server.setup(seed, db, prg_mode="ctr", rng=rng, device="cpu")
     m = server.num_query_cols
     budget = 4 * m * LWE_DIMENSION - (1 if over_budget else 0)
     monkeypatch.setattr(host_client, "RESIDENT_PLANES_MAX_BYTES", budget)
@@ -122,7 +122,7 @@ def test_engine_choice_matches_jax_client(over_budget, rng, monkeypatch):
                         classmethod(lambda cls, s, mm: orig(cls, s, mm, cols_per_step=512)))
 
     jax_client = chalametpir_tpu.Client.setup(seed, hint, fparams, prg_mode="ctr", device=True)
-    port_client = Client.setup(seed, hint, fparams, device="cpu")
+    port_client = Client.setup(seed, hint, fparams, prg_mode="ctr", device="cpu")
     assert isinstance(jax_client._engine, JaxStreaming) == over_budget
     assert isinstance(port_client._engine, StreamingQueryEngine) == over_budget
     assert port_client.setup_stats["engine"] == ("streaming" if over_budget else "resident")
@@ -144,8 +144,8 @@ def test_round_trip_through_streaming_client(rng, monkeypatch):
     monkeypatch.setattr(host_client, "RESIDENT_PLANES_MAX_BYTES", 0)
     db = generate_random_kv_database(400, rng=rng, value_byte_len=(900, 1024))
     seed = rng.bytes(32)
-    server, hint, fparams = Server.setup(seed, db, rng=rng, device="cpu")
-    client = Client.setup(seed, hint, fparams, device="cpu", prepared_queries=2)
+    server, hint, fparams = Server.setup(seed, db, prg_mode="ctr", rng=rng, device="cpu")
+    client = Client.setup(seed, hint, fparams, prg_mode="ctr", device="cpu", prepared_queries=2)
     assert isinstance(client._engine, StreamingQueryEngine) and client.uses_device
     assert client.setup_stats["engine"] == "streaming" and client.setup_stats["plane_bytes"] == 0
     keys = list(db)
