@@ -18,8 +18,19 @@ Importing this package imports neither jax nor chalametpir_tpu. The
 native host engine is built with g++ on first use.
 """
 
+from .core.filter import BinaryFuseFilter
 from .errors import ArithmeticOverflowAddingQueryIndicator, ChalametPIRError
-from .models.client import Client
+from .models.client import Client, Query
 from .models.server import Server
+from .params import LWE_DIMENSION, SEED_BYTE_LEN
 
-__all__ = ["Server", "Client", "ChalametPIRError", "ArithmeticOverflowAddingQueryIndicator"]
+__all__ = [
+    "Server",
+    "Client",
+    "Query",
+    "BinaryFuseFilter",
+    "ChalametPIRError",
+    "ArithmeticOverflowAddingQueryIndicator",
+    "SEED_BYTE_LEN",
+    "LWE_DIMENSION",
+]

@@ -22,7 +22,10 @@ GB/s of planes read, that rate's share of the device-to-device copy
 bandwidth measured in the same run (bytes read plus written per second
 by a 2 GiB copy), the plain version's ms, and the ms of
 `torch._int_mm(qd, lo)`, the one library call that computes the digit
-kernel's lo product. Without CUDA it exits non-zero.
+kernel's lo product. Then, per height, one line with the ratio of the 3-D
+layout's time to the 2-D layout's, from calls timed in turns (2-D, 3-D,
+2-D, ...), so that a drift of the card's clocks falls on both alike: the
+question the diagnostic exists to answer. Without CUDA it exits non-zero.
 """
 
 from __future__ import annotations
@@ -140,6 +143,16 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def ratio_in_turns(fn_a, fn_b, reps: int) -> float:
+    """median ms of fn_b over median ms of fn_a, the two called in turns."""
+    fn_a(), fn_b()
+    times = ([], [])
+    for _ in range(reps):
+        for fn, into in zip((fn_a, fn_b), times):
+            into.append(cuda_ms(fn, 1, warmup=0))
+    return statistics.median(times[1]) / statistics.median(times[0])
+
+
 def int_mm_ms(qd: torch.Tensor, lo: torch.Tensor) -> float:
     """Median ms of torch._int_mm(qd, lo): the library call that computes
     the digit kernel's lo product (out_lo = qd . lo)."""
@@ -158,9 +171,10 @@ def copy_gbps(device) -> float:
 
 
 def scan_height(log_n: int, device, gen: torch.Generator, copy_rate: float,
-                plain_reps: int = 1) -> list[dict]:
+                plain_reps: int = 1) -> tuple[list[dict], float]:
     """Check and time every variant at one height; returns one row per
-    variant, with its plain version's ms beside its own."""
+    variant, with its plain version's ms beside its own, and the 3-D
+    layout's time over the 2-D layout's."""
     geo = Geometry.of(log_n)
     db = synthetic_planes(geo, device, gen)
     queries = torch.randint(-(1 << 31), 1 << 31, (NUM_QUERIES, geo.m), dtype=torch.int32,
@@ -185,27 +199,30 @@ def scan_height(log_n: int, device, gen: torch.Generator, copy_rate: float,
         rows.append({"height": log_n, "b": geo.b, "layout": variant, "plane_GB": nbytes / 1e9,
                      "ms": ms, "GBps": gbps, "copy_share": gbps / copy_rate,
                      "plain_ms": plain_ms[variant], "int_mm_ms": int_mm})
+    ratio = ratio_in_turns(fns["2d"], fns["3d"], 2 * REPS)
     del db, queries, qd2, qd3, fns
     torch.cuda.empty_cache()
-    return rows
+    return rows, ratio
 
 
 def run(seed: int = 0, log=print) -> dict:
     """The whole diagnostic on the current CUDA device, at every height of
     HEIGHTS; logs one JSON line per height and variant and returns
-    {"copy_GBps", "rows"}."""
+    {"copy_GBps", "rows", "ratio_3d_over_2d" by height}."""
     if not torch.cuda.is_available():
         raise RuntimeError("scan_qd needs a CUDA device")
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(seed)
     rate = copy_gbps(device)
     log(json.dumps({"copy_GBps": rate}))
-    rows = []
+    rows, ratios = [], {}
     for log_n in HEIGHTS:
-        for row in scan_height(log_n, device, gen, rate, plain_reps=2 if log_n <= 20 else 1):
+        height_rows, ratios[log_n] = scan_height(log_n, device, gen, rate, plain_reps=2 if log_n <= 20 else 1)
+        for row in height_rows:
             log(json.dumps({"scan": row}))
             rows.append(row)
-    return {"copy_GBps": rate, "rows": rows}
+        log(json.dumps({"layouts": {"height": log_n, "ratio_3d_over_2d": ratios[log_n]}}))
+    return {"copy_GBps": rate, "rows": rows, "ratio_3d_over_2d": ratios}
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,7 @@ The sources under `csrc/` have a plain C interface, so they are compiled
 with `nvcc` into one shared library (no PyTorch headers: a build takes
 seconds, not minutes; one nvcc per source, in parallel) and bound with
 ctypes. The build happens on first use, never at import, into `_build/`
-next to this file, keyed by a digest of the sources and the flags; a
+next to this file, keyed by a digest of the sources, their headers and the flags; a
 second process waits on a file lock and reuses the result. Same
 build-on-first-use idiom as the native host engine
 (chalametpir_tpu/native/engine.py).
@@ -18,11 +18,13 @@ output; nothing here falls back to a plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from dataclasses import dataclass
 
 import torch
 
@@ -30,11 +32,12 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = ("ctr_keccak.cu", "respond_packed.cu", "respond_digits.cu")
+HEADERS = ("mma_common.cuh",)  # included by the sources, from csrc/ alone
 # each source compiles to an object in its own nvcc process, all started
 # together; one more nvcc call links the objects into the library
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-)
+)  # and -I csrc/
 
 # launches per kernel since the last reset_launch_counts(); a run reads
 # them to show that its path went through the kernels
@@ -60,7 +63,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -82,9 +85,12 @@ def build() -> float:
         if not os.path.exists(so):
             tmp = f"{so}.{os.getpid()}.tmp"
             nvcc = nvcc_path()
+            missing = [name for name in HEADERS if not os.path.isfile(os.path.join(_CSRC, name))]
+            if missing:
+                raise RuntimeError(f"kernel headers missing from {_CSRC}: {missing}")
             objs = [f"{tmp}.{name}.o" for name in SOURCES]
             procs = [
-                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC, name), "-o", obj],
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", os.path.join(_CSRC, name), "-o", obj],
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 for name, obj in zip(SOURCES, objs)
             ]
@@ -119,9 +125,10 @@ def build() -> float:
     ]
     lib.respond_digits_launch.restype = ctypes.c_int
     lib.respond_digits_launch.argtypes = [
-        vp, i64, i64, i64, i64, vp, vp, i64, i64, i64, ctypes.c_int, i64, i64, ctypes.c_int,
-        vp, vp, vp,
+        vp, i64, i64, i64, i64, vp, vp, i64, i64, i64, ci, i64, i64, ci, ci, vp, vp, vp,
     ]
+    lib.respond_digits_smem_bytes.restype = ci
+    lib.respond_digits_smem_bytes.argtypes = [ci, ci, ci]
     _lib = lib
     return time.perf_counter() - t0
 
@@ -270,45 +277,125 @@ def _respond_packed(
     LAUNCHES[f"respond_packed_{regime}"] += 1
 
 
-# the digit kernel's blocks carry 4-8 warps each, and every block ends in
-# qd_rows x c_pad atomics: fewer, longer row splits than respond_packed
-_DIGIT_TARGET_BLOCKS = 1024
-_WARP_ROWS = 8  # digit rows per warp
-_MAX_WARPS = 8
+# -- the digit kernel (csrc/respond_digits.cu) --------------------------------
+DIGIT_ROWS = 32  # digit rows per block: two m16 tiles
+DIGIT_ROW_STEP = 64  # plane rows per stage; tile_k and the splits are multiples
+_DIGIT_STAGES = 4
+_DIGIT_LD = DIGIT_ROW_STEP + 16  # digit row stride in shared memory
+BLOCK_SMEM_MAX = 232_448  # dynamic shared memory a block can ask for (H100)
+_SM_SMEM = 233_472  # shared memory of one SM, of which each block reserves 1 KB
+_SM_COUNT = 132  # H100 SXM; the launch asks the device
 
 
-def respond_digits(
-    qd: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor | None, pack: int,
-    out_lo: torch.Tensor, out_hi: torch.Tensor | None,
-) -> None:
-    """out_lo += qd . lo and out_hi += qd[:qh_rows] . hi fields (mod 2^32).
+@dataclass(frozen=True)
+class DigitGeometry:
+    """How one digit-kernel launch is cut: `warps` warps a block, each block
+    32 digit rows x 32 * warps columns (`fields` of the pack's fields of
+    32 * warps / fields hi bytes) x one of `splits` row ranges of
+    rows_per_split; grid = (row groups, column blocks, splits)."""
+    warps: int
+    fields: int
+    splits: int
+    rows_per_split: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
 
-    qd: int8 digits, (qd_rows, m) with unit column stride (the strided 2-D
-    layout) or (n_tiles, qd_rows, tile_k) with unit last stride (the
-    tile-contiguous 3-D layout), read through its strides either way;
-    qd_rows % 32 == 0. lo (>= m, c_pad) int8 and hi (>= m, pc) uint8 (None
-    when pack == 0), contiguous; out_lo (qd_rows, c_pad) and out_hi
-    (qh_rows, c_pad) contiguous int32, qh_rows = qd_rows - qd_rows // 4."""
-    _require_cuda(qd, "qd", torch.int8)
-    _require_cuda(lo, "lo", torch.int8)
-    _require_cuda(out_lo, "out_lo", torch.int32)
+
+def digit_smem_bytes(pack: int, warps: int, fields: int) -> int:
+    """Dynamic shared memory of a digit-kernel block: the ring of stages,
+    each 32 digit rows, 64 lo rows and 64 rows of the block's hi bytes."""
+    cols = 32 * warps
+    hi_w = cols // fields if pack > 1 else cols
+    lo_ld = cols + 16
+    hi_ld = hi_w + (32 if (hi_w // 16) % 2 else 16)
+    stage = DIGIT_ROWS * _DIGIT_LD + DIGIT_ROW_STEP * lo_ld + (DIGIT_ROW_STEP * hi_ld if pack else 0)
+    return _DIGIT_STAGES * stage
+
+
+@functools.lru_cache(maxsize=None)
+def digit_tiles(pack: int) -> tuple[tuple[int, int], ...]:
+    """Every (warps, fields) the kernel takes at this pack: the block's hi
+    bytes a multiple of 16, its shared memory within BLOCK_SMEM_MAX."""
+    return tuple(
+        (warps, fields)
+        for warps in (16, 12, 8, 4)
+        for fields in ([f for f in (1, 2, 4, 8) if pack % f == 0] if pack > 1 else [1])
+        if 32 * warps % (16 * fields) == 0
+        and digit_smem_bytes(pack, warps, fields) <= BLOCK_SMEM_MAX
+    )
+
+
+def _digit_tile(c_pad: int, pack: int) -> tuple[int, int]:
+    """(warps, fields) of a block: the tile that wastes least of its column
+    blocks on columns past the planes' edge, where a tile whose runs in
+    the lo plane are not whole 32-byte sectors counts half; of equals the
+    widest, and of those the one with the longest runs (the fewest
+    fields). diag/digits_sweep.py measures every tile side by side
+    (PERF.md: 16 warps of 4 fields over the 2^20 planes, 12 warps over the
+    1152 columns of 2^23)."""
+    seg = c_pad // pack if pack > 1 else c_pad
+    best, best_used = None, 0.0
+    for warps, fields in digit_tiles(pack):
+        w = 32 * warps // fields
+        used = seg / (-(-seg // w) * w) / (2 if w % 32 else 1)
+        if used > best_used:
+            best, best_used = (warps, fields), used
+    return best
+
+
+@functools.lru_cache(maxsize=256)  # a scan repeats one geometry: keep the launch's host time short
+def digit_geometry(m: int, qd_rows: int, c_pad: int, pack: int, sm_count: int = _SM_COUNT,
+                   tile: tuple[int, int] | None = None, waves: int = 1) -> DigitGeometry:
+    """The launch geometry of the digit kernel for (qd_rows, m) digits over
+    planes c_pad wide. The grid is whole rounds of the card's block slots
+    (every SM full and none a block behind): `waves` of them, or as many as
+    it takes for a split to stay within MMA_MAX_SPLIT_ROWS (no s32
+    accumulator can overflow). A split is a multiple of DIGIT_ROW_STEP rows
+    and, unless m is shorter, at least _MIN_SPLIT_ROWS. `tile` forces the
+    block's (warps, fields)."""
+    warps, fields = tile or _digit_tile(c_pad, pack)
+    if (warps, fields) not in digit_tiles(pack):
+        raise ValueError(f"{warps} warps of {fields} fields are no tile of pack {pack}")
+    smem = digit_smem_bytes(pack, warps, fields)
+    hi_w = 32 * warps // fields
+    seg = c_pad // pack if pack > 1 else c_pad
+    grid_xy = (qd_rows // DIGIT_ROWS, -(-seg // hi_w) * (pack // fields if pack > 1 else 1))
+    base = grid_xy[0] * grid_xy[1]
+    slots = sm_count * max(1, min(_SM_SMEM // (smem + 1024), _SM_THREADS // (32 * warps)))
+    rounds = max(waves, -(-(-(-m // MMA_MAX_SPLIT_ROWS) * base) // slots))
+    splits, rows = _splits(m, base, DIGIT_ROW_STEP, MMA_MAX_SPLIT_ROWS, target=rounds * slots)
+    if max(grid_xy[1], splits) > 65535:
+        raise ValueError(f"grid {(*grid_xy, splits)} is past CUDA's 65,535 blocks in y or z")
+    return DigitGeometry(warps, fields, splits, rows, (*grid_xy, splits), smem)
+
+
+def digit_launch_args(qd, lo, hi, pack: int, out_lo, out_hi) -> tuple[int, int, int, int, int, int, int]:
+    """Checks the digit kernel's contract on shapes, strides, types and
+    addresses (on any device) and returns (qd_rows, m, tile_k, tile_stride,
+    row_stride, c_pad, pc) as the launch wants them; raises ValueError."""
+    for name, t, dtype in (("qd", qd, torch.int8), ("lo", lo, torch.int8), ("out_lo", out_lo, torch.int32)):
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if qd.dim() == 2:
         if qd.stride(1) != 1:
             raise ValueError("2-D digits need unit column stride")
         qd_rows, m = qd.shape
-        tile_k, tile_stride, row_stride = m, 0, qd.stride(0)
+        # one tile that holds every k, in whole stages
+        tile_k, tile_stride, row_stride = -(-m // DIGIT_ROW_STEP) * DIGIT_ROW_STEP, 0, qd.stride(0)
     elif qd.dim() == 3:
         if qd.stride(2) != 1:
             raise ValueError("3-D digits need unit stride within a tile")
         n_tiles, qd_rows, tile_k = qd.shape
         m, tile_stride, row_stride = n_tiles * tile_k, qd.stride(0), qd.stride(1)
+        if tile_k % DIGIT_ROW_STEP:
+            raise ValueError(f"tile_k must be a multiple of {DIGIT_ROW_STEP}, got {tile_k}")
     else:
         raise ValueError(f"qd must be 2-D or 3-D, got {qd.dim()}-D")
     rows, c_pad = lo.shape
     if m > rows or not lo.is_contiguous() or c_pad % 128:
         raise ValueError("lo must be contiguous, cover the digit length, and have c_pad % 128 == 0")
-    if qd_rows % 32 or m % 4 or tile_k % 4 or tile_stride % 4 or row_stride % 4:
-        raise ValueError("need qd_rows % 32 == 0 and m, tile_k and the digit strides % 4 == 0")
+    if qd_rows % DIGIT_ROWS or m % 16 or tile_stride % 16 or row_stride % 16:
+        raise ValueError("need qd_rows % 32 == 0 and m and the digit strides % 16 == 0")
     if pack not in (0, 1, 2, 4, 8):
         raise ValueError(f"pack must be 0, 1, 2, 4 or 8, got {pack}")
     qh_rows = qd_rows - qd_rows // 4
@@ -318,34 +405,59 @@ def respond_digits(
     if pack:
         if hi is None or out_hi is None:
             raise ValueError("pack > 0 needs the hi plane and out_hi")
-        _require_cuda(hi, "hi", torch.uint8)
-        _require_cuda(out_hi, "out_hi", torch.int32)
+        if hi.dtype != torch.uint8 or out_hi.dtype != torch.int32:
+            raise ValueError("hi must be uint8 and out_hi int32")
         pc = c_pad // pack if pack > 1 else c_pad
         if hi.shape != (rows, pc) or not hi.is_contiguous():
             raise ValueError(f"hi must be a contiguous ({rows}, {pc}) tensor")
         if out_hi.shape != (qh_rows, c_pad) or not out_hi.is_contiguous():
             raise ValueError(f"out_hi must be a contiguous ({qh_rows}, {c_pad}) tensor")
-    ptrs = [qd.data_ptr(), lo.data_ptr(), out_lo.data_ptr()]
-    ptrs += [hi.data_ptr(), out_hi.data_ptr()] if pack else []
-    if any(p % 4 for p in ptrs):
-        raise ValueError("digits, planes and outputs must be 4-byte aligned")
+    if any(p % 16 for p in [qd.data_ptr(), lo.data_ptr()] + ([hi.data_ptr()] if pack else [])):
+        raise ValueError("the digits and the planes must be 16-byte aligned")
+    if any(p % 4 for p in [out_lo.data_ptr()] + ([out_hi.data_ptr()] if pack else [])):
+        raise ValueError("the outputs must be 4-byte aligned")
+    return qd_rows, m, tile_k, tile_stride, row_stride, c_pad, pc
+
+
+def respond_digits(
+    qd: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor | None, pack: int,
+    out_lo: torch.Tensor, out_hi: torch.Tensor | None,
+) -> None:
+    """out_lo += qd . lo and out_hi += qd[:qh_rows] . hi fields (mod 2^32).
+
+    qd: int8 digits, (qd_rows, m) with unit column stride and m % 16 == 0
+    (the strided 2-D layout) or (n_tiles, qd_rows, tile_k) with unit last
+    stride and tile_k % 64 == 0 (the tile-contiguous 3-D layout), read
+    through its strides either way; qd_rows % 32 == 0; the other strides
+    and the address are multiples of 16. lo (>= m, c_pad) int8 and hi
+    (>= m, pc) uint8 (None when pack == 0), contiguous and 16-byte aligned;
+    out_lo (qd_rows, c_pad) and out_hi (qh_rows, c_pad) contiguous int32,
+    qh_rows = qd_rows - qd_rows // 4."""
+    _respond_digits(qd, lo, hi, pack, out_lo, out_hi)
+
+
+def _respond_digits(qd, lo, hi, pack, out_lo, out_hi, tile: tuple[int, int] | None = None,
+                    waves: int = 1) -> None:
+    """respond_digits with the block's tile (warps, fields) and the grid's
+    depth forced: diag/digits_sweep.py times the choices side by side."""
+    for name, t in (("qd", qd), ("lo", lo), ("out_lo", out_lo), ("hi", hi), ("out_hi", out_hi)):
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    qd_rows, m, tile_k, tile_stride, row_stride, c_pad, pc = digit_launch_args(
+        qd, lo, hi, pack, out_lo, out_hi)
     if qd_rows == 0 or m == 0:
         return
     build()
-    groups = qd_rows // _WARP_ROWS
-    warps = min(groups, _MAX_WARPS)
-    blocks_xz = (c_pad // 128) * -(-groups // warps)
-    splits = max(1, min(-(-_DIGIT_TARGET_BLOCKS // blocks_xz), m // _MIN_SPLIT_ROWS))
-    per_split = -(-m // splits)
-    rows_per_split = -(-per_split // 4) * 4
-    splits = -(-m // rows_per_split)
+    sm_count = torch.cuda.get_device_properties(lo.device).multi_processor_count
+    geo = digit_geometry(m, qd_rows, c_pad, pack, sm_count, tile, waves)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         _check(
             _lib.respond_digits_launch(
                 qd.data_ptr(), qd_rows, tile_k, tile_stride, row_stride, lo.data_ptr(),
-                hi.data_ptr() if pack else None, m, c_pad, pc, pack, splits, rows_per_split,
-                warps, out_lo.data_ptr(), out_hi.data_ptr() if pack else None, stream,
+                hi.data_ptr() if pack else None, m, c_pad, pc, pack, geo.splits,
+                geo.rows_per_split, geo.warps, geo.fields, out_lo.data_ptr(),
+                out_hi.data_ptr() if pack else None, stream,
             ),
             "respond_digits",
         )

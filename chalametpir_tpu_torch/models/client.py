@@ -615,6 +615,26 @@ class Client:
                 client._pending[key] = Query(vec_c=pending_c[i].copy())
         return client
 
+    # -- benchmarking hooks (reference: client.rs:60-71) -----------------------
+
+    def discard_query(self, key: bytes) -> Query | None:
+        """Remove and return the pending query of `key`, or None when there
+        is none. A reservation (a query() for this key still in flight on
+        another thread) stays where it is and reads as none."""
+        key = bytes(key)
+        with self._pending_mutex:
+            pending = self._pending.get(key)
+            if not isinstance(pending, Query):
+                return None
+            del self._pending[key]
+            return pending
+
+    def insert_query(self, key: bytes, query: Query) -> None:
+        """Install `query` as the pending query of `key` (what discard_query
+        returned), replacing whatever is there."""
+        with self._pending_mutex:
+            self._pending[bytes(key)] = query
+
     @staticmethod
     def _sample_ternary(n: int) -> np.ndarray:
         """Uniform {0, 1, -1} as {0, 1, 2} codes from a CSPRNG — these are

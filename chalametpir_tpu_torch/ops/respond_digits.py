@@ -90,8 +90,9 @@ def respond_digits(qd, lo, hi, pack: int):
         raise ValueError(f"unsupported device {device}")
     rows = qd.shape[-2]
     c_pad = lo.shape[1]
-    out_lo = torch.zeros((rows, c_pad), dtype=torch.int32, device=device)
-    out_hi = torch.zeros((qh_rows_of(rows), c_pad), dtype=torch.int32, device=device) if pack else None
+    # both outputs in one buffer: one fill kernel zeroes them
+    out = torch.zeros((rows + (qh_rows_of(rows) if pack else 0), c_pad), dtype=torch.int32, device=device)
+    out_lo, out_hi = out[:rows], out[rows:] if pack else None
     kernels.respond_digits(qd, lo, hi, pack, out_lo, out_hi)
     return out_lo, out_hi
 

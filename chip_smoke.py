@@ -446,27 +446,53 @@ def main(argv=None) -> int:
     phase_done("phase 5")
 
     # -- phase 6: the digit kernel (K4-K6) against its plain version -----------
-    m, c = 30001, 1000
-    for b in (8, 9, 10, 12, 14):
+    # 32, 64 and 96 digit rows (of 96, 72 meet hi: not a multiple of 16), the
+    # widths of the 2^20 and the 2^23 planes (1024 and 1152 columns: eight
+    # and nine blocks of 128), every pack, both layouts
+    m = 30033  # 30,048 digits a row in whole copies: a ragged last stage and split
+    for b, c in itertools.product((8, 9, 10, 12, 14), (1000, 1100)):
         mat = rng.integers(0, 1 << b, size=(m, c), dtype=np.uint32)
         db_planes = rp.build_packed_db(mat, b, dev)
         lo, hi = db_planes.lo, db_planes.hi
         pack = rp.pack_geometry(b, lo.shape[1])[0]
-        for q in (8, 16):  # 32 and 64 digit rows
+        for q in (8, 16, 24):
             queries = torch.from_numpy(
                 rng.integers(0, 1 << 32, size=(q, m), dtype=np.uint32).view(np.int32)).to(dev)
             want = rp.respond_packed_ref(queries, lo, hi, b, c)
             qd2, _ = digits.prepare_query_digits(queries, lo.shape[0])
             want_lo, want_hi = rd.respond_digits_ref(qd2, lo, hi, pack)
-            for layout in rd.LAYOUTS:
+            # the 2-D digits cut to whole 16-byte copies: a strided view
+            view = qd2[:, : -(-m // 16) * 16]
+            for layout, qd in (("2d", qd2), ("3d", rd.to_3d(qd2)), (f"2d view of {view.shape[1]} digits", view)):
                 what = f"b={b} pack={pack} qd_rows={qd2.shape[0]} {layout} m={m} c={c}"
-                out_lo, out_hi = rd.respond_digits(qd2 if layout == "2d" else rd.to_3d(qd2), lo, hi, pack)
+                out_lo, out_hi = rd.respond_digits(qd, lo, hi, pack)
                 errors.check("respond_digits", out_lo, want_lo, f"{what}: out_lo")
                 if pack:
                     errors.check("respond_digits", out_hi, want_hi, f"{what}: out_hi")
+            for layout in rd.LAYOUTS:
                 errors.check("respond_digits", rd.respond_batch_digits(queries, db_planes, layout),
-                             want, f"{what}: recombined vs u32 plain")
+                             want, f"b={b} qd_rows={qd2.shape[0]} {layout}: recombined vs u32 plain")
         del db_planes, lo, hi
+    # digits and plane bytes at their extremes, every hi field all ones, over
+    # more rows than one split may hold: every partial sum as large as it gets
+    m = 33 * rp.M_ALIGN
+    if m < kernels.MMA_MAX_SPLIT_ROWS + kernels.DIGIT_ROW_STEP:
+        raise AssertionError("the extreme planes do not cross a split")
+    for pack, dfill, lfill in itertools.product((0, 1, 2, 4, 8), (-128, 127), (-128, 127)):
+        qd2 = torch.full((32, m), dfill, dtype=torch.int8, device=dev)
+        lo = torch.full((m, 128), lfill, dtype=torch.int8, device=dev)
+        hi = torch.full((m, 128 // max(pack, 1)), 0xFF, dtype=torch.uint8, device=dev) if pack else None
+        want_lo, want_hi = rd.respond_digits_ref(qd2, lo, hi, pack)
+        field = -1 if pack == 1 else (1 << (8 // max(pack, 1))) - 1  # pack 1 bytes are read as int8
+        if not ((want_lo == dfill * lfill * m).all() and (not pack or (want_hi == dfill * field * m).all())):
+            raise AssertionError("the plain version misses the closed form of a constant product")
+        for layout, qd in (("2d", qd2), ("3d", rd.to_3d(qd2))):
+            what = f"pack={pack} digits {dfill} x lo {lfill}, fields all ones, {m} rows, {layout}"
+            out_lo, out_hi = rd.respond_digits(qd, lo, hi, pack)
+            errors.check("respond_digits", out_lo, want_lo, f"{what}: out_lo")
+            if pack:
+                errors.check("respond_digits", out_hi, want_hi, f"{what}: out_hi")
+    del qd2, lo, hi
     phase_done("phase 6")
 
     # -- phase 7: the scan diagnostic, the digit kernel's path -----------------
@@ -485,6 +511,8 @@ def main(argv=None) -> int:
             bnd = digits_bound_ms(r)
             log(f"  2^{r['height']}: torch._int_mm(qd, lo) {r['int_mm_ms']:.3f} ms beside the digit kernel's "
                 f"{r['ms']:.3f} ms; bound {bnd[0]:.3f} ms ({bnd[1]})")
+    log("  3-D layout's time over the 2-D layout's, calls in turns: "
+        + ", ".join(f"2^{h} {r:.4f}" for h, r in scan["ratio_3d_over_2d"].items()))
     log(f"  every height bit-exact; launches {scan_launches}")
     phase_done("phase 7")
 

@@ -2,8 +2,9 @@
 CPU round trips through chalametpir_tpu_torch in ctr mode (the resident
 and the streaming client engine) and in stream mode, server and client
 save/load, a fetch through the port's TCP server and client, telemetry
-with its profiler and trace lines, the digit-layout respond and the scan
-diagnostic's checks, run in a subprocess where importing jax or
+with its profiler and trace lines, the public names and the client's
+benchmarking hooks, the digit-layout respond and the scan diagnostic's
+checks, run in a subprocess where importing jax or
 chalametpir_tpu raises; and no source of the port, nor chip_smoke.py,
 imports either."""
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 import chalametpir_tpu_torch
 from chalametpir_tpu_torch import Client, Server, convert, kernels
+from chalametpir_tpu_torch import Query, BinaryFuseFilter, SEED_BYTE_LEN, LWE_DIMENSION
 from chalametpir_tpu_torch.diag import scan_qd
 from chalametpir_tpu_torch.ops import client_device, digits, prg_torch, respond_digits, respond_packed
 from chalametpir_tpu_torch.ops.client_device import StreamingQueryEngine
@@ -63,8 +65,12 @@ assert isinstance(streaming._engine, StreamingQueryEngine)
 for client, srv in ((resident, server), (streaming, server), (stream_client, stream_server)):
     for key in list(db)[:3]:
         assert client.process_response(key, srv.respond(query(client, key))) == db[key]
+assert (SEED_BYTE_LEN, LWE_DIMENSION) == (32, 1774) and isinstance(stream_client._filter, BinaryFuseFilter)
 key = list(db)[3]
 pending = query(stream_client, key)
+held = stream_client.discard_query(key)  # the benchmarking hooks
+assert isinstance(held, Query) and stream_client.discard_query(key) is None
+stream_client.insert_query(key, held)
 stream_client.save(os.path.join(tmp, "client"))
 stream_server.save(os.path.join(tmp, "server"))
 loaded = Server.load(os.path.join(tmp, "server"), device="cpu")
