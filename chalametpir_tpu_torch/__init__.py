@@ -14,6 +14,9 @@ the native host engine, framing) and imports nothing of chalametpir_tpu:
     value = client.process_response(b"key", response)
 
 device="cpu" runs the plain torch versions of the kernels (the test path).
+Subpackages: core/, native/, ops/, models/, net/, utils/, diag/, and
+parallel/ (sharding over a mesh of devices or of torch.distributed ranks:
+`Server.setup(..., mesh=parallel.make_mesh(...))`).
 Importing this package imports neither jax nor chalametpir_tpu. The
 native host engine is built with g++ on first use.
 """

@@ -129,10 +129,10 @@ class Client:
         the PIR_CLIENT_MAX_A_BYTES cap (KVDatabaseSizeTooLarge), as in the
         JAX client, and lands in resident planes. A failure to build the engine
         raises, with no fallback."""
-        if prg_mode not in prg.PRG_MODES:
-            raise ValueError(f"unknown prg mode {prg_mode!r}")
         if len(seed) != SEED_BYTE_LEN:
             raise ValueError(f"seed must be {SEED_BYTE_LEN} bytes")
+        if prg_mode not in prg.PRG_MODES:
+            raise ValueError(f"unknown prg mode {prg_mode!r}")
         device = resolve_device(device)
         wall0, cpu0 = time.perf_counter(), time.thread_time()
         filt = BinaryFuseFilter.from_bytes(filter_param_bytes)

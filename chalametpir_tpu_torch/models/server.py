@@ -1,11 +1,11 @@
 """The PIR server on a torch device: packed DB planes, kernel respond path.
 
 Counterpart of chalametpir_tpu/models/server.py for its packed layout
-(`_setup_jax_ctr_pipelined`, the stream branch of `_setup_jax`, `respond`,
-`respond_batch`, `save`, `load`). The encode, the filter, the host XOF and
-the wire formats are the port's own copies of the JAX package's
-framework-free modules (core/, native/), byte for byte the same protocol;
-the device work is the port's:
+(`_setup_jax_ctr_pipelined`, the stream branch of `_setup_jax`,
+`_setup_sharded`, `respond`, `respond_batch`, `save`, `load`). The
+encode, the filter, the host XOF and the wire formats are the port's own
+copies of the JAX package's framework-free modules (core/, native/), byte
+for byte the same protocol; the device work is the port's:
 
 * ctr-mode setup streams the encode in fingerprint-row chunks (native
   engine), packs each finished chunk on the host, copies it into the
@@ -17,7 +17,11 @@ the device work is the port's:
   block by row block into the hint with the respond kernel, each block of
   A rows a batch of queries, the XOF running a block ahead in a thread;
 * respond runs the packed respond kernel over the planes, one launch for a
-  whole batch of queries.
+  whole batch of queries;
+* with a mesh (parallel/sharding.py) the planes are split in row shards,
+  each shard generates its own range of A (ctr) or takes its column slice
+  of A's row blocks (stream), and a batch costs one launch a shard, the
+  shards' int32 partials summed mod 2^32.
 
 The planes are packed at every element width, b 13-14 included (one hi
 byte per element), where the JAX package's stream path switches to its
@@ -104,8 +108,18 @@ def _gc_paused():
 
 
 def resolve_device(device) -> torch.device:
-    """torch.device for a "cpu" or "cuda" request; a CUDA request on a
-    machine without CUDA raises instead of running on the CPU."""
+    """torch.device for a device request. "cpu" and "cuda" (or any torch
+    device of those types) are taken as they are; the JAX client's values
+    are accepted too: False is the CPU, True is CUDA, "auto" is CUDA when
+    there is a CUDA device and the CPU otherwise. The choice is made here,
+    once, before any work: a CUDA request on a machine without CUDA raises
+    instead of running on the CPU, and nothing that fails later falls back."""
+    if device is False:
+        device = "cpu"
+    elif device is True:
+        device = "cuda"
+    elif isinstance(device, str) and device == "auto":
+        device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -118,13 +132,20 @@ def resolve_device(device) -> torch.device:
 class Server:
     """Stateful PIR server holding the device-resident packed database."""
 
-    def __init__(self, planes: PackedPlanes, num_query_cols: int, num_response_cols: int):
+    def __init__(self, planes, num_query_cols: int, num_response_cols: int, mesh=None):
+        # PackedPlanes on one device, or parallel.ShardedPlanes over `mesh`
         self._planes = planes
         self._num_query_cols = num_query_cols
         self._num_response_cols = num_response_cols
         self.mat_elem_bit_len = planes.mat_elem_bit_len
         # measured setup attribution, filled by setup()
         self.setup_stats: dict = {}
+        self._mesh = mesh
+        self._sharded_respond = None
+        if mesh is not None:
+            from ..parallel import sharded_respond_packed_fn
+
+            self._sharded_respond = sharded_respond_packed_fn(mesh, planes)
 
     @classmethod
     def setup(
@@ -136,18 +157,29 @@ class Server:
         rng: np.random.Generator | None = None,
         device="cuda",
         mat_elem_bit_len: int | None = None,
+        mesh=None,
     ) -> tuple["Server", bytes, bytes]:
         """Encode `db`, compute the hint M = A . D, return
         (server, hint_bytes, filter_param_bytes) — byte-identical to
         chalametpir_tpu.Server.setup with the same seed, DB, rng and
         prg_mode ("stream", the default, derives A as the reference does;
-        "ctr" generates it on the device; clients must use the same)."""
-        if prg_mode not in prg.PRG_MODES:
-            raise ValueError(f"unknown prg mode {prg_mode!r}")
+        "ctr" generates it on the device; clients must use the same).
+
+        mesh: a parallel.Mesh (`parallel.make_mesh`, or
+        `parallel.multihost.make_multihost_mesh` across processes). The
+        encoded DB's fingerprint rows are sharded over its `model` axis
+        (for DBs past one device's memory), query batches over `data`; the
+        hint and every response are the same bytes as without a mesh. The
+        shards live on the mesh's devices and `device` is not read. Across
+        processes every rank calls setup with identical inputs (seed, db,
+        arity, rng state) and every rank's respond_batch, called with the
+        same queries, returns the full answer."""
         if len(db) == 0:
             raise EmptyKVDatabase()
         if len(seed) != SEED_BYTE_LEN:
             raise ValueError(f"seed must be {SEED_BYTE_LEN} bytes")
+        if prg_mode not in prg.PRG_MODES:
+            raise ValueError(f"unknown prg mode {prg_mode!r}")
         # 0-byte values are permanently unretrievable through the row codec
         if any(len(v) == 0 for v in db.values()):
             raise ValueError("0-byte values are not encodable by the row codec")
@@ -155,16 +187,72 @@ class Server:
             MIN_CIPHER_TEXT_BIT_LEN <= mat_elem_bit_len <= MAX_CIPHER_TEXT_BIT_LEN
         ):
             raise ImpossibleEncodedDBMatrixElementBitLength()
-        device = resolve_device(device)
+        if mesh is None:
+            device = resolve_device(device)
         with _gc_paused():
             bit_len = (
                 mat_elem_bit_len
                 if mat_elem_bit_len is not None
                 else find_mat_elem_bit_len(len(db))
             )
-            setup = cls._setup_ctr_pipelined if prg_mode == "ctr" else cls._setup_stream
-            server, hint, filt = setup(seed, db, arity, bit_len, rng, device)
+            if mesh is not None:
+                server, hint, filt = cls._setup_sharded(seed, db, arity, bit_len, rng, prg_mode, mesh)
+            else:
+                setup = cls._setup_ctr_pipelined if prg_mode == "ctr" else cls._setup_stream
+                server, hint, filt = setup(seed, db, arity, bit_len, rng, device)
         return server, matrix_io.matrix_to_bytes(hint), filt.to_bytes()
+
+    @classmethod
+    def _setup_sharded(cls, seed, db, arity, bit_len, rng, prg_mode, mesh):
+        """Setup over a mesh: the encode of `_setup_stream` (so the same rng
+        gives the same filter as without a mesh), the packed planes
+        row-sharded over `model`, then the hint. In ctr mode every shard
+        generates only its own fingerprint range of A on its device and
+        folds it there. In stream mode A's row blocks come off the host
+        XOF, a block ahead in a thread, each zero-padded to the planes'
+        padded rows and folded as one batch of queries whose columns are
+        split over the shards."""
+        from ..parallel import build_sharded_pallas_db, sharded_hint_ctr_packed, sharded_hint_packed_fn
+
+        wall0 = time.perf_counter()
+        with telemetry.span("server_setup.encode_db", entries=len(db), b=bit_len):
+            mat_d, filt = encode_db.from_kv_database(
+                db, arity, bit_len, SERVER_SETUP_MAX_ATTEMPT_COUNT, rng
+            )
+        m, cols = mat_d.shape
+        phase = dict(encode=time.perf_counter() - wall0)
+        t0 = time.perf_counter()
+        with telemetry.span("server_setup.pack_and_shard", m=m, cols=cols):
+            planes = build_sharded_pallas_db(mesh, mat_d, bit_len)
+        del mat_d
+        phase["pack_shard"] = time.perf_counter() - t0
+        m_pad = planes.m_pad
+
+        t0 = time.perf_counter()
+        if prg_mode == "ctr":
+            with telemetry.span("server_setup.hint_sharded_ctr", m_pad=m_pad):
+                hint = sharded_hint_ctr_packed(mesh, planes, seed)
+        else:
+            hint_step = sharded_hint_packed_fn(mesh, planes)
+            block_rows = min(max(1, (16 << 20) // (4 * m)), LWE_DIMENSION)
+            parts = []
+            with telemetry.span("server_setup.hint_sharded", m_pad=m_pad), \
+                    contextlib.closing(prg.prefetch_iter(
+                        prg.iter_row_blocks(LWE_DIMENSION, m, seed, block_rows, mode=prg_mode)
+                    )) as blocks:
+                for _, block in blocks:
+                    a = torch.zeros((block.shape[0], m_pad), dtype=torch.int32)
+                    a[:, :m] = torch.from_numpy(block.view(np.int32))
+                    parts.append(hint_step(a))
+                hint = torch.cat([p.cpu() for p in parts]).contiguous().numpy().view(np.uint32)
+        phase["hint"] = time.perf_counter() - t0
+
+        server = cls(planes, m, cols, mesh=mesh)
+        server.setup_stats = {
+            "phases_s": {k: round(v, 2) for k, v in phase.items()},
+            "wall_s": round(time.perf_counter() - wall0, 2),
+        }
+        return server, hint, filt
 
     @classmethod
     def _setup_stream(cls, seed, db, arity, bit_len, rng, device):
@@ -321,6 +409,13 @@ class Server:
         queries = np.ascontiguousarray(queries, np.uint32)
         if queries.ndim != 2 or queries.shape[1] != self._num_query_cols:
             raise IncompatibleDimensionForRowVectorTransposedMatrixMultiplication()
+        if self._sharded_respond is not None:
+            # zero columns up to the planes' padded rows, zero rows up to a
+            # multiple of the data axis; both are cut from the answer
+            nq, data = queries.shape[0], self._mesh.shape["data"]
+            q = torch.zeros((-(-nq // data) * data, self._planes.m_pad), dtype=torch.int32)
+            q[:nq, : queries.shape[1]] = torch.from_numpy(queries.view(np.int32))
+            return self._sharded_respond(q)[:nq].cpu().contiguous().numpy().view(np.uint32)
         # the explicit device (never the calling thread's current one): the
         # TCP dispatcher calls this from a worker thread
         q = torch.from_numpy(queries.view(np.int32)).to(self.device)
@@ -334,7 +429,13 @@ class Server:
         layout (chalametpir_tpu.Server.save), which either package's
         `load` reads: a `meta` repr, `lo`, `hi` and `tile_k`, the row
         alignment of the planes. The hint and filter params are not in it:
-        they left at setup."""
+        they left at setup.
+
+        A server sharded over an in-process mesh gathers its shards, as
+        the JAX package does: the archive loads as an unsharded server (the
+        TCP server's main refuses --save-state with --mesh for that
+        reason). A rank of a multi-process mesh holds one shard and raises
+        ValueError."""
         p = self._planes
         meta = dict(
             backend="jax",
@@ -343,9 +444,10 @@ class Server:
             num_response_cols=self._num_response_cols,
             mat_elem_bit_len=self.mat_elem_bit_len,
         )
-        arrays = dict(lo=p.lo.cpu().numpy(), tile_k=np.array([M_ALIGN]))
-        if p.hi is not None:
-            arrays["hi"] = p.hi.cpu().numpy()
+        lo, hi = p.gather() if self._mesh is not None else (p.lo, p.hi)
+        arrays = dict(lo=lo.cpu().numpy(), tile_k=np.array([M_ALIGN]))
+        if hi is not None:
+            arrays["hi"] = hi.cpu().numpy()
         # through a file handle: np.savez(str) appends ".npz" to a path
         # without a suffix, which load would then not find
         with open(path, "wb") as f:
@@ -381,7 +483,8 @@ class Server:
         return cls(planes, m, c)
 
     @property
-    def planes(self) -> PackedPlanes:
+    def planes(self):
+        """PackedPlanes, or parallel.ShardedPlanes on a sharded server."""
         return self._planes
 
     @property

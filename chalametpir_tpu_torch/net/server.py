@@ -1,7 +1,7 @@
 """TCP PIR server on the port (reference: chalametpir_server/examples/server.rs).
 
 Run: python -m chalametpir_tpu_torch.net.server [--host 127.0.0.1] [--port 8080]
-     [--device cuda] [--prg-mode stream]
+     [--device cuda] [--prg-mode stream] [--mesh DATAxMODEL]
 
 Serves the demo fruit database unless --random-db N is given. The
 transport is the port's own copy of the JAX package's
@@ -34,12 +34,22 @@ class BatchDispatcher:
     `max_batch` of them (everything already queued, no artificial delay)
     and answers them with one respond_batch call off-thread: one respond
     kernel launch for every query queued, from every connection. Batches
-    are not padded: the kernel compiles nothing per shape, and a padded
-    batch would make a lone query pay for a 64-query respond."""
+    are not padded unless `pad_batches` asks for it: the kernel compiles
+    nothing per shape, and a padded batch would make a lone query pay for
+    a 64-query respond."""
 
-    def __init__(self, server: Server, max_batch: int = 64):
+    def __init__(self, server: Server, max_batch: int = 64,
+                 respond_batch_fn=None, pad_batches: bool = False):
         self._server = server
         self._max_batch = max_batch
+        # pluggable batch hook: multi-process serving wraps respond_batch to
+        # broadcast the stacked queries to the worker processes first
+        # (parallel.multihost.leader_respond_batch_fn)
+        self._respond_batch = respond_batch_fn or server.respond_batch
+        # zero rows up to max_batch; their responses are zero and are never
+        # read. Off by default, in the JAX package on for its jax backend,
+        # whose respond compiles per batch shape
+        self._pad_batches = pad_batches
         self._queue: asyncio.Queue = asyncio.Queue()
         self._task: asyncio.Task | None = None
         self._busy = False  # a batch is currently being answered
@@ -73,7 +83,9 @@ class BatchDispatcher:
                 self._busy = True
                 try:
                     rows = np.stack([q for q, _ in batch])
-                    out = await asyncio.to_thread(self._server.respond_batch, rows)
+                    if self._pad_batches and rows.shape[0] < self._max_batch:
+                        rows = np.pad(rows, ((0, self._max_batch - rows.shape[0]), (0, 0)))
+                    out = await asyncio.to_thread(self._respond_batch, rows)
                 except Exception as exc:  # propagate to every waiter
                     for _, fut in batch:
                         if not fut.done():
@@ -137,12 +149,15 @@ DEMO_DB = {
 
 class PirTcpServer:
     def __init__(self, server: Server, seed: bytes, hint: bytes,
-                 filter_params: bytes, max_batch: int = 64):
+                 filter_params: bytes, respond_batch_fn=None,
+                 max_batch: int = 64):
         self._server = server
         self._seed = seed
         self._hint = hint
         self._filter_params = filter_params
-        self._dispatcher = BatchDispatcher(server, max_batch=max_batch)
+        self._dispatcher = BatchDispatcher(
+            server, max_batch=max_batch, respond_batch_fn=respond_batch_fn
+        )
         # a valid query is exactly (1, m) u32 + the 8-byte header; cap the
         # frame reader there so a hostile 4-byte length prefix cannot make
         # this process buffer gigabytes
@@ -245,12 +260,21 @@ def main(argv=None):
                     help="after setup, persist serving state to PREFIX.{state,setup}")
     ap.add_argument("--load-state", metavar="PREFIX",
                     help="skip setup and resume serving from a --save-state archive")
+    ap.add_argument("--mesh", metavar="DATAxMODEL",
+                    help="serve the DB sharded over a device mesh, e.g. '1x4' (fingerprint rows "
+                         "over 4 devices, the partial responses summed): with --device cuda the "
+                         "visible CUDA devices, with --device cpu shards on the CPU")
     args = ap.parse_args(argv)
 
-    if args.load_state and (args.random_db or args.save_state):
+    if args.load_state and (args.random_db or args.save_state or args.mesh):
         ap.error("--load-state resumes an archived server; it cannot be combined with "
-                 "--random-db or --save-state (and it ignores --arity and --prg-mode, "
+                 "--random-db, --save-state or --mesh (and it ignores --arity and --prg-mode, "
                  "which are baked into the archive)")
+    if args.mesh and args.save_state:
+        # Server.save on a sharded server gathers the planes, and the archive
+        # would resume as an unsharded server, which one device may not hold
+        ap.error("--save-state cannot archive a --mesh-sharded server; "
+                 "re-run setup with --mesh on restart instead")
     if args.load_state:
         server, seed, hint, filter_params = load_serving_state(args.load_state, args.device)
         print(f"Resumed from {args.load_state}.state, hint {len(hint)} B", file=sys.stderr)
@@ -261,9 +285,19 @@ def main(argv=None):
             db = generate_random_kv_database(args.random_db)
         else:
             db = DEMO_DB
+        mesh = None
+        if args.mesh:
+            from ..parallel import make_mesh
+
+            try:
+                data, model = (int(x) for x in args.mesh.lower().split("x"))
+            except ValueError:
+                ap.error("--mesh expects DATAxMODEL, e.g. 1x4")
+            mesh = make_mesh(["cpu"] * (data * model) if args.device == "cpu" else None,
+                             data=data, model=model)
         seed = os.urandom(SEED_BYTE_LEN)
         server, hint, filter_params = Server.setup(
-            seed, db, arity=args.arity, prg_mode=args.prg_mode, device=args.device
+            seed, db, arity=args.arity, prg_mode=args.prg_mode, device=args.device, mesh=mesh
         )
         print(f"Setup done: {len(db)} entries, hint {len(hint)} B", file=sys.stderr)
         if args.save_state:

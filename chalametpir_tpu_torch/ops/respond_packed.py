@@ -81,11 +81,13 @@ class PackedPlanes:
         return self.lo.numel() + (self.hi.numel() if self.hi is not None else 0)
 
 
-def build_packed_db(mat: np.ndarray, mat_elem_bit_len: int, device) -> PackedPlanes:
+def build_packed_db(mat: np.ndarray, mat_elem_bit_len: int, device,
+                    m_align: int = M_ALIGN) -> PackedPlanes:
     """(m, c) uint16/uint32 encoded DB -> packed planes on `device`, built
-    by the native host engine's one-pass packer."""
+    by the native host engine's one-pass packer, m padded to a multiple of
+    `m_align`."""
     m, c = mat.shape
-    m_pad = _round_up(m, M_ALIGN)
+    m_pad = _round_up(m, m_align)
     c_pad = _round_up(c, LANE)
     pack, bits, _ = pack_geometry(mat_elem_bit_len, c_pad)
     if mat.dtype == np.uint16:

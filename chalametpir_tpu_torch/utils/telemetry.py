@@ -45,6 +45,10 @@ def thread_rusage():
         return _NullRusage()
 
 
+def trace_enabled() -> bool:
+    return _ENABLED
+
+
 @contextlib.contextmanager
 def span(name: str, **fields):
     """Time a phase; prints `[trace] name: 1.234s k=v ...` when enabled."""

@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from csrc/, checks each against its plain
 PyTorch version bit for bit (phase 3: the respond kernel's scan and
 tensor-core regimes at every hi-plane pack, Q from 1 to 1774, both
 regimes on both sides of their crossover, out accumulated twice, the
-hint fold's transposed view), then drives four paths, each with the
+hint fold's transposed view), then drives five paths, each with the
 launch counts set to 0 just before it and read just after:
 
 - phases 4-5, the ctr-mode serving path through the public entry points
@@ -35,7 +35,16 @@ launch counts set to 0 just before it and read just after:
   block) and Client.setup, each under torch.profiler for the device's
   busy time, single and batched queries, Server.save and Server.load,
   and the port's TCP server and client (9b), with the ctr Keccak kernel
-  never launched.
+  never launched;
+- phases 10-11, the sharded server: the 2^20 DB of phase 4 through
+  Server.setup(mesh=...) on a 1 x 4 mesh whose shards all lie on this card,
+  hint, filter and responses equal to phase 4's byte for byte, the kernels
+  held against their plain versions and timed at the shard shapes, sharded
+  respond beside unsharded on the same planes (10); 2^14 entries over 1 x 3
+  and 2 x 2 meshes, stream and ctr, b = 8 and derived, against the
+  unsharded server (10b); then two processes that share this card, each
+  with one shard, joined by torch.distributed (gloo): the demo's round
+  trip and its TCP serving loop (11).
 
 Imports nothing of jax or of the JAX package. Prints progress lines and
 each phase's wall time, then one JSON line with each kernel's launches on
@@ -52,9 +61,12 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import copy
 import itertools
 import json
 import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -66,6 +78,7 @@ import numpy as np
 NUM_ENTRIES, VALUE_LEN, ARITY = 1 << 20, 1024, 3
 STREAMING_ENTRIES = 1 << 21  # past the resident client planes' budget
 STREAM_CHECK_ENTRIES = 1 << 14  # small enough for the plain versions on the host
+DEMO_DEADLINE_S = 180  # each form of the two-process demo
 RESPOND_PALLAS = ("chalametpir_tpu/ops/respond_pallas.py:184 (K1, `_kernel_with_hi`), "
                   "chalametpir_tpu/ops/respond_pallas.py:211 (K2, `_kernel_lo_only`)")
 SOURCES = {
@@ -208,6 +221,35 @@ def fetch_over_tcp(server, seed: bytes, hint: bytes, fparams: bytes, keys: list,
     return asyncio.run(run()), tcp._dispatcher
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_demo(*args: str) -> subprocess.Popen:
+    """The port's two-process demo (parallel/multihost_demo.py), both ranks
+    on this card, in a process group of its own so that it can be ended whole."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "chalametpir_tpu_torch.parallel.multihost_demo", "--launch", "2",
+         "--device", "cuda", "--entries", str(STREAM_CHECK_ENTRIES), "--timeout", str(DEMO_DEADLINE_S - 30),
+         "--coordinator", f"127.0.0.1:{free_port()}", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+
+
+def end_demo(proc: subprocess.Popen, marker: str) -> str:
+    """The demo's output once it has ended with code 0 and `marker`; on
+    expiry its whole process group is killed and the run fails."""
+    try:
+        out = proc.communicate(timeout=DEMO_DEADLINE_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        raise AssertionError(f"the two-process demo timed out:\n{proc.communicate()[0][-3000:]}")
+    if proc.returncode != 0 or marker not in out:
+        raise AssertionError(f"the two-process demo failed (rc {proc.returncode}, no {marker!r}?):\n{out[-3000:]}")
+    return out
+
+
 class Errors:
     """Largest |kernel - plain| per kernel, over every comparison made.
     The tolerance is 0: both compute u32 words mod 2^32 exactly."""
@@ -337,6 +379,7 @@ def main(argv=None) -> int:
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    filter_rng_state = copy.deepcopy(rng.bit_generator.state)  # phase 10 draws the same filter
     t0 = time.perf_counter()
     server, hint, fparams = Server.setup(pir_seed, db, arity=ARITY, prg_mode="ctr",
                                          rng=rng, device=dev)
@@ -345,7 +388,7 @@ def main(argv=None) -> int:
     client = Client.setup(pir_seed, hint, fparams, prg_mode="ctr", device=dev)
     torch.cuda.synchronize()
     client_s = time.perf_counter() - t0
-    respond_ms = []
+    respond_ms, singles = [], []
     for key in probe[:16]:
         qb = query(client, key)
         t0 = time.perf_counter()
@@ -353,6 +396,7 @@ def main(argv=None) -> int:
         respond_ms.append((time.perf_counter() - t0) * 1e3)
         if client.process_response(key, rb) != db[key]:
             raise AssertionError("single query decoded a wrong value")
+        singles.append((qb, rb))
     # a client restarted from its archive answers the queries pending at save
     pending = {key: query(client, key) for key in probe[:2]}
     with tempfile.TemporaryDirectory() as tmp:
@@ -390,8 +434,11 @@ def main(argv=None) -> int:
     log(f"  device bytes: server planes {planes.device_bytes}, client A planes "
         f"{client._engine.device_bytes}; m={planes.num_rows} c={planes.num_cols} "
         f"b={planes.mat_elem_bit_len}")
-    db20 = db  # phase 9 serves the same DB in stream mode
-    del db, client, server
+    db20 = db  # phase 9 serves the same DB in stream mode, phase 10 sharded
+    # what the sharded server of phase 10 must reproduce byte for byte
+    unsharded = dict(seed=pir_seed, hint=hint, fparams=fparams, singles=singles, qmat=qmat, resp=resp,
+                     rng_state=filter_rng_state, setup_s=setup_s)
+    del db, client, server, singles, qmat, resp
     phase_done("phase 4")
 
     # -- phase 5: kernel vs plain at the main path's shapes -------------------
@@ -742,9 +789,180 @@ def main(argv=None) -> int:
     for name in ("respond_packed_scan", "respond_packed_mma"):
         launches[name] += stream_launches[name] + interop_launches[name] + persist_launches[name]
     launches["ctr_keccak"] += stream_launches["ctr_keccak"]
-    del db, db20, loaded
+    del db, loaded
     torch.cuda.empty_cache()
     phase_done("phase 9b")
+
+    # -- phase 10: the sharded server at 2^20, every shard on this card --------
+    from chalametpir_tpu_torch.parallel import make_mesh, sharded_respond_packed_fn
+    from chalametpir_tpu_torch.parallel import sharding
+
+    mesh = make_mesh(["cuda:0"] * 4, data=1, model=4)
+    filter_rng = np.random.default_rng()
+    filter_rng.bit_generator.state = unsharded["rng_state"]
+    pir_seed = unsharded["seed"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    server, hint, fparams = Server.setup(pir_seed, db20, arity=ARITY, prg_mode="ctr", rng=filter_rng, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if fparams != unsharded["fparams"]:
+        raise AssertionError("the sharded setup's filter bytes differ from phase 4's")
+    errors.check("respond_packed_mma", as_i32(matrix_io.matrix_from_bytes(hint)),
+                 as_i32(matrix_io.matrix_from_bytes(unsharded["hint"])), "sharded ctr hint vs the unsharded server's")
+    if hint != unsharded["hint"]:
+        raise AssertionError("the sharded setup's hint bytes differ from phase 4's")
+    respond_ms = []
+    for qb, rb in unsharded["singles"]:
+        t0 = time.perf_counter()
+        got = server.respond(qb)
+        respond_ms.append((time.perf_counter() - t0) * 1e3)
+        if got != rb:
+            raise AssertionError("a sharded response differs from the unsharded server's")
+    t0 = time.perf_counter()
+    resp = server.respond_batch(unsharded["qmat"])
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(resp, unsharded["resp"]):
+        raise AssertionError("the sharded respond_batch differs from the unsharded server's")
+    client = Client.setup(pir_seed, hint, fparams, prg_mode="ctr", device=dev)
+    key = next(iter(db20))
+    if client.process_response(key, server.respond(query(client, key))) != db20[key]:
+        raise AssertionError("the sharded server's response decoded a wrong value")
+    torch.cuda.synchronize()
+    sharded_launches = require_launched(("ctr_keccak", "respond_packed_scan", "respond_packed_mma"),
+                                        "sharded 2^20 path")
+    planes, dev0 = server.planes, torch.device("cuda", 0)
+    if list(planes.runs) != [dev0]:
+        raise AssertionError(f"the shards are not on the card: {list(planes.runs)}")
+    b, ncols, m_local = planes.mat_elem_bit_len, planes.num_cols, planes.m_local
+    cc = sharding._sharded_chunk_rows(m_local, rp.M_ALIGN)
+    log(f"  sharded setup, 1x4 mesh on cuda:0: {setup_s:.2f} s (unsharded, phase 4: {unsharded['setup_s']:.2f} s), "
+        f"phases {server.setup_stats['phases_s']}; m_pad={planes.m_pad} m_local={m_local}, "
+        f"{m_local // cc} fold chunks of {cc} rows a shard")
+    log(f"  hint, filter, {len(respond_ms)} responses and a respond_batch of {len(resp)} byte-identical to "
+        f"phase 4's, a key decoded; server.respond median {statistics.median(respond_ms):.3f} ms, "
+        f"respond_batch {batch_ms:.3f} ms (host wall); launches {sharded_launches}")
+    del client, resp
+    # the kernels at the shard shapes: chunk 1 of shard 1 starts mid-stream
+    col0 = m_local + cc
+    block0, offset = prg_torch.fp_block_start(col0, LWE_DIMENSION)
+    nblocks = cc * LWE_DIMENSION * 4 // 168 + 2
+    pir_words = prg_torch.seed_to_words(pir_seed)
+    errors.check("ctr_keccak", prg_torch.ctr_blocks(pir_words, block0, nblocks, dev),
+                 prg_torch.ctr_blocks_ref(pir_words, block0, nblocks, dev),
+                 f"{nblocks} blocks from block {block0} (shard 1, chunk 1; word offset {offset})")
+    k = cuda_ms(lambda: prg_torch.ctr_blocks(pir_words, block0, nblocks, dev), 5)
+    p = cuda_ms(lambda: prg_torch.ctr_blocks_ref(pir_words, block0, nblocks, dev), 2)
+    bnd = keccak_bound_ms(nblocks)
+    log(f"  ctr_keccak at the shard shape, {nblocks} blocks: kernel {k:.3f} ms, plain {p:.3f} ms, bound "
+        f"{bnd[0]:.3f} ms ({bnd[1]}; {bnd[0] / k:.1%}); {4 * (m_local // cc)} launches per sharded setup")
+    a_slab = prg_torch.expand_fp_slab(pir_words, col0, cc, LWE_DIMENSION, dev)
+    lo_s, hi_s = planes.shard(1, dev0)
+    lo_c, hi_c = lo_s[cc : 2 * cc], hi_s[cc : 2 * cc] if hi_s is not None else None
+    fold = lambda: rp.hint_fold_partial(a_slab, lo_c, hi_c, b, ncols)  # noqa: E731
+    fold_ref = lambda: rp.respond_packed_ref(a_slab.t(), lo_c, hi_c, b, ncols)  # noqa: E731
+    errors.check(regime(LWE_DIMENSION, b), fold(), fold_ref(), f"sharded hint fold {LWE_DIMENSION} x {cc} x {ncols}")
+    k, p = cuda_ms(fold, 3), cuda_ms(fold_ref, 2)
+    bnd = respond_regimes.bound_ms(LWE_DIMENSION, cc, lo_c.shape[1],
+                                   lo_c.numel() + (hi_c.numel() if hi_c is not None else 0), b)
+    log(f"  sharded hint fold chunk {LWE_DIMENSION} x {cc} x {ncols}: kernel {k:.3f} ms, plain {p:.3f} ms, bound "
+        f"{bnd[0]:.3f} ms ({bnd[1]}; {bnd[0] / k:.1%}); {4 * (m_local // cc)} launches per sharded setup")
+    del a_slab, lo_c, hi_c, fold, fold_ref
+    # respond, sharded beside unsharded, on the same planes (one tensor on the card)
+    _, lo_all, hi_all = planes.runs[dev0]
+    sharded_fn = sharded_respond_packed_fn(mesh, planes)
+    for q in (1, 64):
+        queries = torch.from_numpy(
+            rng.integers(0, 1 << 32, size=(q, planes.m_pad), dtype=np.uint32).view(np.int32)).to(dev0)
+        one_fn = lambda: rp.respond_packed_core(queries, lo_all, hi_all, b, ncols)  # noqa: E731
+        many_fn = lambda: sharded_fn(queries)  # noqa: E731
+        errors.check(regime(q, b), many_fn(), rp.respond_packed_ref(queries, lo_all, hi_all, b, ncols),
+                     f"sharded respond Q={q}, 4 shards of {m_local} rows")
+        one_a, many_a, many_b, one_b = cuda_ms(one_fn, 20), cuda_ms(many_fn, 20), cuda_ms(many_fn, 20), cuda_ms(one_fn, 20)
+        shard_fn = lambda: rp.respond_packed_core(queries[:, m_local : 2 * m_local], lo_s, hi_s, b, ncols)  # noqa: E731
+        shard_ref = lambda: rp.respond_packed_ref(queries[:, m_local : 2 * m_local], lo_s, hi_s, b, ncols)  # noqa: E731
+        shard_bnd = respond_regimes.bound_ms(q, m_local, lo_all.shape[1], planes.device_bytes // 4, b)
+        log(f"  respond Q={q} over the same planes: unsharded (1 launch) {one_a:.3f}, {one_b:.3f} ms; sharded "
+            f"(4 launches into one buffer) {many_a:.3f}, {many_b:.3f} ms; one shard's launch "
+            f"{cuda_ms(shard_fn, 20):.3f} ms, plain {cuda_ms(shard_ref, 3):.3f} ms, bound {shard_bnd[0]:.3f} ms "
+            f"({shard_bnd[1]}), of the four {4 * shard_bnd[0]:.3f} ms")
+    del db20, server, planes, lo_all, hi_all, lo_s, hi_s, sharded_fn, queries, one_fn, many_fn, shard_fn, shard_ref, unsharded
+    torch.cuda.empty_cache()
+    phase_done("phase 10")
+
+    # -- phase 10b: stream mode and the awkward geometries, small --------------
+    n = STREAM_CHECK_ENTRIES
+    db = build_db(n, VALUE_LEN, args.seed + 2)
+    pir_seed = rng.bytes(32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for mode, b in itertools.product(("stream", "ctr"), (None, 8)):
+        kw = dict(arity=ARITY, prg_mode=mode, mat_elem_bit_len=b)
+        one, one_hint, one_fparams = Server.setup(pir_seed, db, rng=np.random.default_rng(args.seed), device=dev, **kw)
+        batches = [rng.integers(0, 1 << 32, size=(q, one.num_query_cols), dtype=np.uint32) for q in (1, 3, 64)]
+        want = [one.respond_batch(queries) for queries in batches]
+        for shape in ((1, 3), (2, 2)):
+            mesh = make_mesh(["cuda:0"] * (shape[0] * shape[1]), data=shape[0], model=shape[1])
+            server, hint, fparams = Server.setup(pir_seed, db, rng=np.random.default_rng(args.seed), mesh=mesh, **kw)
+            what = f"{mode} b={server.mat_elem_bit_len} mesh {shape[0]}x{shape[1]} m_pad={server.planes.m_pad}"
+            errors.check(regime(LWE_DIMENSION, server.mat_elem_bit_len), as_i32(matrix_io.matrix_from_bytes(hint)),
+                         as_i32(matrix_io.matrix_from_bytes(one_hint)), f"{what}: hint vs unsharded")
+            if (hint, fparams) != (one_hint, one_fparams):
+                raise AssertionError(f"{what}: hint or filter bytes differ from the unsharded server's")
+            for queries, resp in zip(batches, want):
+                errors.check(regime(len(queries), server.mat_elem_bit_len), as_i32(server.respond_batch(queries)),
+                             as_i32(resp), f"{what}: respond_batch Q={len(queries)} vs unsharded")
+        del one, server
+    torch.cuda.synchronize()
+    small_launches = require_launched(("ctr_keccak", "respond_packed_scan", "respond_packed_mma"),
+                                      "sharded 2^14 paths")
+    log(f"  {n} entries, stream and ctr, b derived and 8, meshes 1x3 and 2x2 on cuda:0: hint, filter and "
+        f"responses equal to the unsharded server's; launches {small_launches}")
+    for name in ("ctr_keccak", "respond_packed_scan", "respond_packed_mma"):
+        launches[name] += sharded_launches[name] + small_launches[name]
+    del db
+    torch.cuda.empty_cache()
+    phase_done("phase 10b")
+
+    # -- phase 11: two processes that share this card --------------------------
+    # both forms of the demo at once: four processes, most of whose time is
+    # their start (imports, CUDA contexts)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        port_file = os.path.join(tmp, "port")
+        demos = [start_demo(), start_demo("--tcp-queries", "2", "--port-file", port_file)]
+        try:
+            deadline = time.monotonic() + DEMO_DEADLINE_S
+            while not os.path.exists(port_file) and demos[1].poll() is None and time.monotonic() < deadline:
+                time.sleep(0.1)
+            if not os.path.exists(port_file):
+                raise AssertionError("the demo's leader never published its TCP port:\n"
+                                     + end_demo(demos[1], "TCP_PORT")[-3000:])
+            from chalametpir_tpu_torch.net.client import fetch
+            from chalametpir_tpu_torch.utils import generate_random_kv_database
+
+            # the DB the demo's ranks build
+            demo_db = generate_random_kv_database(STREAM_CHECK_ENTRIES, rng=np.random.default_rng(0xD157),
+                                                  value_byte_len=(1, 64))
+            demo_keys = sorted(demo_db)[:2]
+            with open(port_file) as f:
+                port = int(f.read())
+            values = asyncio.run(fetch("127.0.0.1", port, demo_keys, prg_mode="ctr", device=dev))
+            if values != {key: demo_db[key] for key in demo_keys}:
+                raise AssertionError("a value fetched from the two-process server did not decode")
+            outs = [end_demo(demos[0], "MULTIHOST OK"), end_demo(demos[1], "MULTIHOST TCP OK")]
+        finally:
+            for proc in demos:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.communicate()
+    for out in outs:
+        log("  " + "\n  ".join(line for line in out.splitlines() if line.startswith(("[p", "MULTIHOST", "TCP_PORT"))))
+    log(f"  two ranks on cuda:0 (gloo), twice, side by side: sharded ctr setup, broadcast query, collective "
+        f"respond, decoded; and the leader serving TCP, 2 keys fetched through net.client.fetch and decoded, "
+        f"the worker released; {time.perf_counter() - t0:.1f} s")
+    phase_done("phase 11")
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
     print(json.dumps({"kernels": [

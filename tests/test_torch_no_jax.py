@@ -4,15 +4,18 @@ and the streaming client engine) and in stream mode, server and client
 save/load, a fetch through the port's TCP server and client, telemetry
 with its profiler and trace lines, the public names and the client's
 benchmarking hooks, the digit-layout respond and the scan diagnostic's
-checks, run in a subprocess where importing jax or
-chalametpir_tpu raises; and no source of the port, nor chip_smoke.py,
-imports either."""
+checks, a sharded server over an in-process mesh and the single-process
+contracts of parallel/multihost, run in a subprocess where importing jax
+or chalametpir_tpu raises; the two-process demo and the quickstart under
+the same block; and no source of the port (parallel/ included), nor
+chip_smoke.py, nor examples/quickstart_torch.py, imports either."""
 
 import os
+import signal
 import subprocess
 import sys
 
-_CODE = r"""
+_BLOCK = r"""
 import sys
 
 class _Block:
@@ -22,7 +25,9 @@ class _Block:
         return None
 
 sys.meta_path.insert(0, _Block())
+"""
 
+_CODE = _BLOCK + r"""
 import numpy as np
 import torch
 import chalametpir_tpu_torch
@@ -32,6 +37,7 @@ from chalametpir_tpu_torch.diag import scan_qd
 from chalametpir_tpu_torch.ops import client_device, digits, prg_torch, respond_digits, respond_packed
 from chalametpir_tpu_torch.ops.client_device import StreamingQueryEngine
 from chalametpir_tpu_torch.net import client as net_client, server as net_server
+from chalametpir_tpu_torch.parallel import make_mesh, multihost, multihost_demo, sharding
 from chalametpir_tpu_torch.utils import telemetry
 import asyncio, contextlib, io, os, tempfile
 import chalametpir_tpu_torch.models.client as port_client
@@ -90,6 +96,18 @@ async def fetch_over_tcp():
                                       device="cpu")
 
 assert asyncio.run(fetch_over_tcp()) == {key: db[key] for key in list(db)[4:6]}
+mesh = make_mesh(["cpu"] * 4, data=2, model=2)
+for mode, (plain, plain_hint) in (("ctr", (server, hint)), ("stream", (stream_server, stream_hint))):
+    sharded, sharded_hint, _ = Server.setup(seed, db, prg_mode=mode, rng=np.random.default_rng(9), mesh=mesh)
+    again, again_hint, _ = Server.setup(seed, db, prg_mode=mode, rng=np.random.default_rng(9), device="cpu")
+    assert sharded_hint == again_hint and len(sharded_hint) == len(plain_hint)
+    assert np.array_equal(sharded.respond_batch(queries.numpy().view(np.uint32)),
+                          again.respond_batch(queries.numpy().view(np.uint32)))
+fn = multihost.leader_respond_batch_fn(sharded)  # one process: the broadcast passes through
+assert np.array_equal(fn(queries.numpy().view(np.uint32)), again.respond_batch(queries.numpy().view(np.uint32)))
+multihost.warmup_collectives(timeout_s=1.0)
+multihost.broadcast_shutdown()
+assert telemetry.trace_enabled() is False
 geo = scan_qd.Geometry(0, 9, 3000, 200)
 gen = torch.Generator().manual_seed(1)
 scan_qd.check(scan_qd.synthetic_planes(geo, "cpu", gen),
@@ -113,16 +131,61 @@ def test_port_round_trip_without_jax():
     assert "NO_JAX_OK" in proc.stdout
 
 
+def _run_blocked(code: str, argv: list[str], timeout: int) -> subprocess.CompletedProcess:
+    """`code` under the import block, in a process group of its own that is
+    killed whole on expiry (the demo starts processes of its own)."""
+    proc = subprocess.Popen([sys.executable, "-c", _BLOCK + code, *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True,
+                            env=dict(os.environ, OMP_NUM_THREADS="1"))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"timed out:\n{(out + err)[-2000:]}")
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def test_quickstart_runs_on_the_cpu_without_jax():
+    """examples/quickstart_torch.py --device cpu, the port's round trip as a
+    script, where importing jax or chalametpir_tpu raises."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples", "quickstart_torch.py")
+    code = "import runpy; sys.argv = sys.argv[1:]; runpy.run_path(sys.argv[0], run_name='__main__')"
+    for mode in ("ctr", "stream"):
+        proc = _run_blocked(code, [path, "--device", "cpu", "--entries", "300", "--prg-mode", mode], 120)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert "quickstart OK" in proc.stdout and proc.stdout.count("value OK") == 3
+
+
+def test_multihost_demo_worker_without_jax():
+    """One rank of the demo as a process group of its own (one process, a
+    1 x 1 mesh) under the import block: initialize, warmup, the sharded
+    setup, the broadcast and the respond import nothing of jax."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("from chalametpir_tpu_torch.parallel import multihost_demo; multihost_demo.main(sys.argv[1:]); "
+            "assert not any(m.split('.')[0] in ('jax', 'chalametpir_tpu') for m in sys.modules)")
+    proc = _run_blocked(code, ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "1", "--process-id", "0",
+                               "--device", "cpu", "--entries", "200"], 120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "MULTIHOST OK" in proc.stdout
+
+
 def test_port_sources_do_not_import_jax():
-    """No line of the port's sources, nor of chip_smoke.py, imports jax or
-    chalametpir_tpu (`import x`, `import x.y`, `from x import`,
-    `from x.y import`), at any indentation."""
+    """No line of the port's sources (parallel/ among them), nor of
+    chip_smoke.py or the port's quickstart, imports jax or chalametpir_tpu
+    (`import x`, `import x.y`, `from x import`, `from x.y import`), at any
+    indentation."""
     import pathlib
 
     import chalametpir_tpu_torch
 
     root = pathlib.Path(chalametpir_tpu_torch.__file__).parent
-    paths = [*root.rglob("*.py"), root.parent / "chip_smoke.py"]
+    paths = [*root.rglob("*.py"), root.parent / "chip_smoke.py", root.parent / "examples" / "quickstart_torch.py"]
+    assert {"sharding.py", "multihost.py", "multihost_demo.py"} <= {p.name for p in paths if p.parent.name == "parallel"}
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
