@@ -37,3 +37,6 @@ __all__ = [
     "SEED_BYTE_LEN",
     "LWE_DIMENSION",
 ]
+
+# the JAX package's version, whose behaviour this package reproduces
+__version__ = "0.2.0"

@@ -22,7 +22,7 @@ import numpy as np
 from ..errors import EmptyKVDatabase
 from ..params import SERVER_SETUP_MAX_ATTEMPT_COUNT
 from . import codec, hashing
-from .filter import BinaryFuseFilter, construct_filter
+from .filter import BinaryFuseFilter, construct_filter, hash_batch
 
 from ..native import engine as _native
 
@@ -187,3 +187,27 @@ def from_kv_database_streaming(
         worker.join()
 
     return mat, filt, chunk_iter()
+
+
+def recover_value(
+    mat: np.ndarray, key: bytes, filt: BinaryFuseFilter
+) -> bytes:
+    """Plaintext recovery of a value straight from D — the non-private dual
+    of the PIR path, used by tests (reference: matrix.rs:769-805, 908-945)."""
+    from ..errors import DecodedRowNotPrependedWithDigestOfKey
+
+    digest = hashing.hash_of_key(key)
+    h = hashing.mix256(digest, filt.seed)
+    rows = hash_batch(filt.arity, h, filt.segment_length, filt.segment_count_length)
+    mask = np.uint32((1 << filt.mat_elem_bit_len) - 1)
+    acc = np.zeros(mat.shape[1], dtype=np.uint32)
+    for r in rows:
+        acc += mat[int(r)]
+    mask_row = hashing.row_mask(int(h), mat.shape[1], 32)
+    row = (acc + mask_row) & mask
+
+    kv = codec.decode_kv_from_row(row, filt.mat_elem_bit_len)
+    digest_bytes = np.asarray(digest).view(np.uint8).tobytes()
+    if kv[:32] != digest_bytes:
+        raise DecodedRowNotPrependedWithDigestOfKey()
+    return kv[32:]

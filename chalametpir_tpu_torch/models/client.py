@@ -41,6 +41,7 @@ from ..errors import (
 from ..native import engine as _native
 from ..ops.client_device import DeviceQueryEngine, StreamingQueryEngine
 from ..params import LWE_DIMENSION, SEED_BYTE_LEN, SERVER_SETUP_MAX_ATTEMPT_COUNT, query_indicator
+from ..utils import telemetry
 from .server import resolve_device
 
 # resident client A planes (4 int8 byte planes, 4 * m * 1774 B) switch to
@@ -53,6 +54,21 @@ RESIDENT_PLANES_MAX_BYTES = 8 << 30
 # into the fingerprint-major planes, and the host holds two blocks in
 # flight (64 x m x 4 bytes each, 302 MB at 2^20 entries)
 STREAM_A_BLOCK_ROWS = 64
+
+
+def _timed_blocks(blocks, stats: dict):
+    """`blocks`, with the wall seconds spent producing them added up in
+    stats["xof_s"]: run it in the producer thread (inside prefetch_iter)
+    and that is the time inside the XOF, whatever the consumer does."""
+    stats["xof_s"] = 0.0
+    it = iter(blocks)
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, None)
+        stats["xof_s"] += time.perf_counter() - t0
+        if item is None:
+            return
+        yield item
 
 
 def uses_streaming(m: int) -> bool:
@@ -135,6 +151,7 @@ class Client:
             raise ValueError(f"unknown prg mode {prg_mode!r}")
         device = resolve_device(device)
         wall0, cpu0 = time.perf_counter(), time.thread_time()
+        ru0 = telemetry.thread_rusage()
         filt = BinaryFuseFilter.from_bytes(filter_param_bytes)
         hint_mat_m = matrix_io.matrix_from_bytes(hint_bytes)
         if hint_mat_m.shape[0] != LWE_DIMENSION:
@@ -162,17 +179,31 @@ class Client:
             t0 = time.perf_counter()
             xof: dict = {}
             with contextlib.closing(prg.prefetch_iter(
-                prg.iter_row_blocks(LWE_DIMENSION, m, seed, STREAM_A_BLOCK_ROWS, mode="stream"),
+                _timed_blocks(
+                    prg.iter_row_blocks(LWE_DIMENSION, m, seed, STREAM_A_BLOCK_ROWS, mode="stream"), xof),
                 stats=xof,
             )) as blocks:
-                engine = DeviceQueryEngine.from_host_rows(blocks, m, device)
+                engine = DeviceQueryEngine.from_host_rows(blocks, m, device, stats=xof)
+            # the JAX client expands A in one call, whose stats split the
+            # buffer's allocation (alloc_s) from the sponge (xof_s). Here A
+            # comes block by block from a producer thread into planes on
+            # the device: xof_s is the producer's wall inside the XOF
+            # squeezes (its blocks' host buffers included), alloc_s the
+            # allocation of the device plane buffer
             stats = {"a_expand_s": round(time.perf_counter() - t0, 2),
-                     "xof_cpu_s": round(xof.get("producer_cpu_s", 0.0), 2)}
+                     "xof_cpu_s": round(xof.get("producer_cpu_s", 0.0), 2),
+                     "xof_s": round(xof.get("xof_s", 0.0), 2),
+                     "alloc_s": round(xof.get("alloc_s", 0.0), 2)}
         client = cls(engine, hint_mat_m, filt, seed, prg_mode)
+        # user/sys and the fault count say where a slow setup went: sys- or
+        # fault-dominated means kernel memory management, not XOF compute
+        ru1 = telemetry.thread_rusage()
         client.setup_stats = {
             **stats,
             "wall_s": round(time.perf_counter() - wall0, 2),
             "cpu_s": round(time.thread_time() - cpu0, 2),
+            "sys_s": round(ru1.ru_stime - ru0.ru_stime, 2),
+            "minflt": ru1.ru_minflt - ru0.ru_minflt,
             "engine": "streaming" if streaming else "resident",
             "plane_bytes": engine.device_bytes,
         }

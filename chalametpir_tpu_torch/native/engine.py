@@ -72,6 +72,7 @@ _i64p = ctypes.POINTER(ctypes.c_int64)
 _i8p = ctypes.POINTER(ctypes.c_int8)
 _u16p = ctypes.POINTER(ctypes.c_uint16)
 
+
 def _load():
     """The loaded library, built on the first call."""
     global _lib
@@ -95,6 +96,13 @@ def _bind(lib):
     lib.bff_peel.argtypes = [
         _u64p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, _u64p, _u8p,
+    ]
+    lib.encode_rows.argtypes = [
+        _u8p, _u8p, _i64p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, _u32p,
+    ]
+    lib.assemble_rows.argtypes = [
+        _u32p, _u32p, _u64p, _u8p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int32,
     ]
     lib.encode_assemble_rows16.argtypes = [
         _u8p, ctypes.POINTER(ctypes.c_char_p), _i64p, _i64p, _u64p, _u8p,
@@ -123,6 +131,14 @@ def _bind(lib):
     lib.mix_row_mask.argtypes = [ctypes.c_uint64, ctypes.c_int64, ctypes.c_uint32, _u32p]
     lib.mix256_scalar.restype = ctypes.c_uint64
     lib.mix256_scalar.argtypes = [_u64p, _u8p]
+    lib.decrypt_decode_row.restype = ctypes.c_int64
+    lib.decrypt_decode_row.argtypes = [
+        _u32p, _u32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_uint64, _u8p,
+    ]
+    lib.client_process_response.restype = ctypes.c_int64
+    lib.client_process_response.argtypes = [
+        _u8p, ctypes.c_int64, _u8p, _u32p, _u32p, ctypes.c_int64, ctypes.c_int32, _u8p,
+    ]
     # hot-path signature: bytes in, raw addresses for the arrays (c_char_p
     # conversion from bytes is ctypes' fastest zero-copy path; c_void_p takes
     # plain ints from arr.ctypes.data, skipping data_as() object churn)
@@ -144,7 +160,6 @@ def _bind(lib):
         _i8p, _u8p, ctypes.c_int32, ctypes.c_int32,
     ]
     return lib
-
 
 
 def alloc_array(shape, dtype, nothp: bool = False, huge: bool = False) -> np.ndarray:
@@ -218,6 +233,8 @@ class XofStream:
             self._handle = None
 
 
+def turboshake128(data: bytes, out_len: int) -> bytes:
+    return XofStream(data).squeeze(out_len).tobytes()
 
 
 def ctr_expand(seed: bytes, block0: int, nblocks: int) -> np.ndarray:
@@ -299,8 +316,38 @@ def bff_peel(hashes: np.ndarray, num_fp: int, arity: int, seg_len: int, seg_cnt_
     return reverse_order, reverse_h
 
 
+def encode_rows(digests: np.ndarray, values: list[bytes], b: int, cols: int) -> np.ndarray:
+    digests = np.ascontiguousarray(digests, np.uint8)
+    n = digests.shape[0]
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, values), np.int64, count=n), out=offsets[1:])
+    _check_row_capacity(np.diff(offsets), b, cols)
+    data = np.frombuffer(b"".join(values), np.uint8) if offsets[-1] else np.zeros(1, np.uint8)
+    out = alloc_array((n, cols), np.uint32)
+    _load().encode_rows(
+        _ptr(digests, _u8p), _ptr(data, _u8p), _ptr(offsets, _i64p), n, b, cols, _ptr(out, _u32p)
+    )
+    return out
 
 
+def assemble_rows(mat, enc_rows, reverse_order, reverse_h, hrows, b, *, filt=None,
+                  arity=None, seg_len=None, seg_cnt_len=None):
+    """In-place reverse-peel-order assembly into `mat` (num_fp, cols)."""
+    del hrows  # recomputed natively from the hashes
+    n, cols = enc_rows.shape
+    mat_c = np.ascontiguousarray(mat, np.uint32)
+    enc_c = np.ascontiguousarray(enc_rows, np.uint32)
+    ro = np.ascontiguousarray(reverse_order, np.uint64)
+    rh = np.ascontiguousarray(reverse_h, np.uint8)
+    _check_geometry(arity, seg_len, seg_cnt_len, mat_c.shape[0])
+    _check_peel_codes(rh, arity)
+    _load().assemble_rows(
+        _ptr(mat_c, _u32p), _ptr(enc_c, _u32p), _ptr(ro, _u64p), _ptr(rh, _u8p),
+        n, cols, arity, seg_len, seg_cnt_len, b,
+    )
+    if mat_c is not mat:
+        mat[...] = mat_c
+    return mat
 
 
 def encode_assemble_rows16(
@@ -453,8 +500,42 @@ def mix256_scalar(key_words: np.ndarray, seed: bytes) -> int:
     return int(_load().mix256_scalar(_ptr(kw, _u64p), _ptr(sw, _u8p)))
 
 
+def decrypt_decode_row(resp: np.ndarray, vec_c: np.ndarray, b: int, h: int) -> bytes | None:
+    """Full response post-processing (decrypt, unmask, decode, validate);
+    returns the kv bytes (digest || value) or None when not decodable."""
+    resp = np.ascontiguousarray(resp, np.uint32)
+    vec_c = np.ascontiguousarray(vec_c, np.uint32)
+    cols = resp.shape[0]
+    out = np.zeros((cols * b) // 8 + 1, np.uint8)
+    n = _load().decrypt_decode_row(
+        _ptr(resp, _u32p), _ptr(vec_c, _u32p), cols, b, ctypes.c_uint64(h), _ptr(out, _u8p)
+    )
+    if n < 0:
+        return None
+    return out[:n].tobytes()
 
 
+def client_process_response(
+    key: bytes, filter_seed: bytes, resp: np.ndarray, vec_c: np.ndarray, b: int
+) -> bytes | int:
+    """Full response handling in one native call: hash key, fold with the
+    filter seed, decrypt+decode, verify the digest prefix. Returns the
+    value bytes, or -1 (not decodable) / -2 (digest mismatch)."""
+    kb = np.frombuffer(key, np.uint8) if key else np.zeros(1, np.uint8)
+    sb = np.frombuffer(filter_seed, np.uint8)
+    if sb.size != 32:  # the C mix256 memcpys 32 bytes unconditionally
+        raise ValueError("filter seed must be 32 bytes")
+    resp = np.ascontiguousarray(resp, np.uint32)
+    vec_c = np.ascontiguousarray(vec_c, np.uint32)
+    cols = resp.shape[0]
+    out = np.zeros((cols * b) // 8 + 1, np.uint8)
+    n = _load().client_process_response(
+        _ptr(kb, _u8p), len(key), _ptr(sb, _u8p),
+        _ptr(resp, _u32p), _ptr(vec_c, _u32p), cols, b, _ptr(out, _u8p),
+    )
+    if n < 0:
+        return int(n)
+    return out[32 : 32 + n].tobytes()
 
 
 def client_process_response_wire(

@@ -252,6 +252,9 @@ def main(argv=None):
     ap.add_argument("--arity", type=int, default=3, choices=(3, 4))
     ap.add_argument("--random-db", type=int, default=0, metavar="N",
                     help="serve a random N-entry database instead of the demo")
+    ap.add_argument("--backend", default="auto", choices=("auto", "torch", "numpy"),
+                    help="torch (also auto): planes on --device; numpy: the host oracle, "
+                         "D as uint16 and uint64 matmuls, --device is not read")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the planes live and the respond runs (cpu: the plain versions)")
     ap.add_argument("--prg-mode", default="stream", choices=("stream", "ctr"),
@@ -268,8 +271,10 @@ def main(argv=None):
 
     if args.load_state and (args.random_db or args.save_state or args.mesh):
         ap.error("--load-state resumes an archived server; it cannot be combined with "
-                 "--random-db, --save-state or --mesh (and it ignores --arity and --prg-mode, "
-                 "which are baked into the archive)")
+                 "--random-db, --save-state or --mesh (and it ignores --arity, --backend and "
+                 "--prg-mode, which are baked into the archive)")
+    if args.mesh and args.backend == "numpy":
+        ap.error("--mesh requires the torch backend")
     if args.mesh and args.save_state:
         # Server.save on a sharded server gathers the planes, and the archive
         # would resume as an unsharded server, which one device may not hold
@@ -297,7 +302,8 @@ def main(argv=None):
                              data=data, model=model)
         seed = os.urandom(SEED_BYTE_LEN)
         server, hint, filter_params = Server.setup(
-            seed, db, arity=args.arity, prg_mode=args.prg_mode, device=args.device, mesh=mesh
+            seed, db, arity=args.arity, prg_mode=args.prg_mode, device=args.device, mesh=mesh,
+            backend=args.backend,
         )
         print(f"Setup done: {len(db)} entries, hint {len(hint)} B", file=sys.stderr)
         if args.save_state:

@@ -1,1 +1,1 @@
-"""Device operations of the port: ctr A generation, packed respond, the client s . A engine."""
+"""Device operations of the port: ctr A generation, packed respond, the digit2 products, the client s . A engine."""

@@ -24,6 +24,8 @@ leave sum(s) unchanged).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -168,17 +170,22 @@ class DeviceQueryEngine(_QueryEngine):
         return cls(planes, k, m)
 
     @classmethod
-    def from_host_rows(cls, row_blocks, m: int, device) -> "DeviceQueryEngine":
+    def from_host_rows(cls, row_blocks, m: int, device, stats: dict | None = None) -> "DeviceQueryEngine":
         """Build A's planes on `device` from stream-mode A, which the host
         XOF emits row-major: `row_blocks` yields (r0, (r, m) uint32 block)
         covering LWE rows 0..k in order, as `prg.iter_row_blocks` does.
         Each block is uploaded and recoded on the device into plane
         columns r0..r0+r (r-byte runs at stride k_pad), so the host holds
         only the blocks in flight, never all of A; run the iterator ahead
-        with `prg.prefetch_iter` and the XOF overlaps upload and recode."""
+        with `prg.prefetch_iter` and the XOF overlaps upload and recode.
+        `stats` (optional) receives alloc_s, the wall seconds of the plane
+        buffer's allocation."""
         device = torch.device(device)
         k = LWE_DIMENSION
+        t0 = time.perf_counter()
         planes = cls._empty_planes(m, device, "stream-mode A has no streaming engine")
+        if stats is not None:
+            stats["alloc_s"] = time.perf_counter() - t0
         rows = 0
         for r0, block in row_blocks:
             r = block.shape[0]

@@ -1,27 +1,66 @@
-"""Balanced base-256 digits of u32 query words, and their recombination.
+"""Balanced base-256 digits of u32 words, and their recombination.
 
-Counterpart of chalametpir_tpu/ops/digits.py (`recode_u32_jnp`) and of the
-glue around the JAX package's Pallas respond kernels
-(ops/respond_pallas.py `_prepare_query_digits`, `_combine`). A u32 x is
-four digits c_i in [-128, 127] with x == sum_i c_i * 256^i (mod 2^32), so
-a mod-2^32 product with the packed planes becomes int8 digit products
-whose int32 partials are shifted and summed.
+Counterpart of chalametpir_tpu/ops/digits.py (its numpy functions copied,
+`recode_u32_jnp` as `recode_u32` on torch) and of the glue around the JAX
+package's Pallas respond kernels (ops/respond_pallas.py
+`_prepare_query_digits`, `_combine`). A u32 x is four digits c_i in
+[-128, 127] with x == sum_i c_i * 256^i (mod 2^32), so a mod-2^32 product
+becomes int8 digit products whose int32 partials are shifted and summed.
+DB elements are < 2^b <= 2^14 and need two digit planes, the second in
+[0, 64] (`db_digit_planes_np`): the digit2 layout of ops/matmul_u32.py
+and ops/respond.py.
 
-The port's serving respond multiplies whole u32 words and needs none of
-this (csrc/respond_packed.cu); the digit form feeds the digit-layout
-respond kernel (ops/respond_digits.py), which reproduces what the TPU
-kernels compute. u32 words travel as int32 tensors holding the same bits;
-every right shift is masked, since torch's >> is arithmetic.
+The port's packed respond multiplies whole u32 words and needs none of
+this (csrc/respond_packed.cu); the digit form feeds the digit2 layout and
+the digit-layout respond kernel (ops/respond_digits.py), which reproduces
+what the TPU kernels compute. u32 words travel as int32 tensors holding
+the same bits; every right shift is masked, since torch's >> is
+arithmetic.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .respond_packed import _wrap_i32
 
 NUM_U32_DIGITS = 4
+NUM_DB_DIGITS = 2
 DIGIT_ROW_ALIGN = 32  # digit rows are padded to a multiple of this
+
+
+def recode_u32_np(x: np.ndarray) -> np.ndarray:
+    """(...,) uint32 -> (4, ...) int8 balanced digits, numpy."""
+    x = np.asarray(x, np.uint32)
+    digits = np.empty((NUM_U32_DIGITS,) + x.shape, dtype=np.int8)
+    carry = np.zeros(x.shape, np.uint32)
+    for i in range(NUM_U32_DIGITS):
+        t = ((x >> np.uint32(8 * i)) & np.uint32(255)) + carry
+        tb = t + np.uint32(128)
+        digits[i] = ((tb & np.uint32(255)).astype(np.int16) - 128).astype(np.int8)
+        carry = tb >> np.uint32(8)
+    return digits
+
+
+def db_digit_planes_np(d: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(m, c) uint32 with elements < 2^14 -> two (m, c) int8 balanced planes.
+
+    plane0 in [-128, 127], plane1 in [0, 64]; d == plane0 + 256*plane1.
+    """
+    d = np.asarray(d, np.uint32)
+    tb = d + np.uint32(128)
+    p0 = ((tb & np.uint32(255)).astype(np.int16) - 128).astype(np.int8)
+    p1 = (tb >> np.uint32(8)).astype(np.int8)
+    return p0, p1
+
+
+def digits_to_u32_np(digits: np.ndarray) -> np.ndarray:
+    """Inverse of recode_u32_np (testing helper)."""
+    acc = np.zeros(digits.shape[1:], np.int64)
+    for i in range(digits.shape[0]):
+        acc += digits[i].astype(np.int64) << (8 * i)
+    return (acc % (1 << 32)).astype(np.uint32)
 
 
 def recode_u32(x: torch.Tensor) -> torch.Tensor:

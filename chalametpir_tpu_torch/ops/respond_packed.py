@@ -1,8 +1,8 @@
 """Respond and hint fold over the packed DB planes.
 
 Counterpart of chalametpir_tpu/ops/respond_pallas.py. The planes keep the
-JAX package's byte layout exactly (chalametpir_tpu/ops/packed.py, whose
-`hi_bits` and `hi_pack_factor` are copied here): lo (m_pad, c_pad) int8
+JAX package's byte layout exactly (ops/packed.py describes it on the
+host; its `hi_bits` and `hi_pack_factor` are re-exported here): lo (m_pad, c_pad) int8
 holds (el & 255) - 128, hi (m_pad, pc) uint8 holds el >> 8 packed
 block-interleaved, or is None for b <= 8. Padded rows and columns hold
 lo = -128, i.e. value zero, so they add nothing for any query — the ctr
@@ -23,6 +23,7 @@ import torch
 
 from .. import kernels
 from ..native import engine
+from .packed import hi_bits, hi_pack_factor  # noqa: F401  (re-exported: their old home)
 
 LANE = 128  # c_pad is a multiple of this (the JAX package's lane width)
 # the JAX package's default tile: rows are padded to whole tiles, so the
@@ -32,25 +33,6 @@ M_ALIGN = 2048
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def hi_bits(mat_elem_bit_len: int) -> int:
-    """Bits needed for the high byte el >> 8."""
-    return max(0, mat_elem_bit_len - 8)
-
-
-def hi_pack_factor(mat_elem_bit_len: int) -> int:
-    """High-plane values packed per byte (a power of two; 0: no hi plane)."""
-    hb = hi_bits(mat_elem_bit_len)
-    if hb == 0:
-        return 0
-    if hb == 1:
-        return 8
-    if hb == 2:
-        return 4
-    if hb <= 4:
-        return 2
-    return 1
 
 
 def pack_geometry(b: int, c_pad: int) -> tuple[int, int, int]:

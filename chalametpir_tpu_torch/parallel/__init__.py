@@ -5,11 +5,16 @@ a process group is an explicit act)."""
 
 from .sharding import (
     Mesh,
+    ShardedDigitPlane,
     ShardedPlanes,
     build_sharded_pallas_db,
     make_mesh,
+    pad_db_planes,
+    shard_db_planes,
+    sharded_hint_accumulate_fn,
     sharded_hint_ctr_packed,
     sharded_hint_packed_fn,
+    sharded_respond_fn,
     sharded_respond_packed_fn,
 )
 
@@ -21,4 +26,9 @@ __all__ = [
     "sharded_respond_packed_fn",
     "sharded_hint_packed_fn",
     "sharded_hint_ctr_packed",
+    "ShardedDigitPlane",
+    "pad_db_planes",
+    "shard_db_planes",
+    "sharded_respond_fn",
+    "sharded_hint_accumulate_fn",
 ]

@@ -1,7 +1,9 @@
 """Sharded PIR serving over a (data, model) mesh of torch devices.
 
-Counterpart of chalametpir_tpu/parallel/sharding.py, its packed functions
-(the digit2 ones serve a layout the port does not have).
+Counterpart of chalametpir_tpu/parallel/sharding.py: its packed functions,
+which the sharded server runs, and its digit2 functions (`pad_db_planes`,
+`shard_db_planes`, `sharded_respond_fn`, `sharded_hint_accumulate_fn`),
+library functions in both packages: `Server.setup(mesh=...)` always packs.
 
 * **model axis**: the fingerprint dimension m of the encoded DB is split
   in equal contiguous row shards (a DB too big for one device's memory).
@@ -38,6 +40,7 @@ from ..errors import AcceleratorError
 from ..models.server import resolve_device
 from ..native import engine
 from ..ops import prg_torch
+from ..ops.matmul_u32 import _matmul_digits, pad_plane
 from ..ops.respond_packed import (
     LANE,
     M_ALIGN,
@@ -213,38 +216,50 @@ def _sum_partials(mesh: Mesh, partials: dict) -> torch.Tensor:
     return part
 
 
-def _sharded_product(mesh: Mesh, db: ShardedPlanes, queries: torch.Tensor, split_rows: bool) -> torch.Tensor:
-    """(Q, m_pad) int32 u32-bit queries -> (Q, c) int32 over the sharded
-    planes. With `split_rows` data row d answers rows [d Q/data, (d + 1)
-    Q/data); without, data row 0 answers them all (A's row blocks: every
-    data row would compute the same). Each device adds its shards'
-    partials into one zeroed buffer of the whole answer, and the buffers
-    are summed over the mesh: everything is linear in the DB rows, so the
-    sum of the shards' int32 partials is exact mod 2^32."""
-    nq, data = queries.shape[0], mesh.shape["data"]
-    if queries.shape[1] != db.m_pad:
-        raise ValueError(f"query length {queries.shape[1]} != padded DB rows {db.m_pad}")
+def _over_cells(mesh: Mesh, nq: int, width: int, split_rows: bool, add_partial) -> torch.Tensor:
+    """The (nq, width) int32 sum over the mesh of the shards' partials.
+    `add_partial(s, device, rows, out)` adds shard s's partial for the query
+    rows `rows` (a slice) into `out`, the device's zeroed buffer of the
+    whole answer. With `split_rows` data row d answers rows [d nq/data,
+    (d + 1) nq/data); without, data row 0 answers them all (A's row
+    blocks: every data row would compute the same). The buffers are summed
+    over the mesh: everything is linear in the DB rows, so the sum of the
+    shards' int32 partials is exact mod 2^32."""
+    data = mesh.shape["data"]
     if split_rows and nq % data:
         raise ValueError(f"{nq} query rows do not split over {data} data rows")
     rows = nq // data if split_rows else nq
     partials: dict = {}
-    columns: dict = {}
     for d, s, device in mesh.cells():
         if device not in partials:
-            partials[device] = torch.zeros((nq, db.c_pad), dtype=torch.int32, device=device)
+            partials[device] = torch.zeros((nq, width), dtype=torch.int32, device=device)
         if d and not split_rows:
             continue
+        r0 = d * rows if split_rows else 0
+        add_partial(s, device, slice(r0, r0 + rows), partials[device])
+    return _sum_partials(mesh, partials)
+
+
+def _sharded_product(mesh: Mesh, db: ShardedPlanes, queries: torch.Tensor, split_rows: bool) -> torch.Tensor:
+    """(Q, m_pad) int32 u32-bit queries -> (Q, c) int32 over the sharded
+    packed planes (`_over_cells`); each device takes its run's query
+    columns in one copy."""
+    if queries.shape[1] != db.m_pad:
+        raise ValueError(f"query length {queries.shape[1]} != padded DB rows {db.m_pad}")
+    columns: dict = {}
+
+    def add_partial(s, device, rows, out):
         if device not in columns:
             columns[device] = db.columns(queries, device)
         s0, q_run = columns[device]
-        r0 = d * rows if split_rows else 0
         cols = slice((s - s0) * db.m_local, (s - s0 + 1) * db.m_local)
         # the local partial (the JAX package's `_packed_partial_i32`): the
         # respond kernel for planes on CUDA, its plain version for planes on
         # the CPU, added into the device's buffer
-        respond_packed_core(q_run[r0 : r0 + rows, cols], *db.shard(s, device), db.mat_elem_bit_len,
-                            db.num_cols, out=partials[device][r0 : r0 + rows])
-    return _sum_partials(mesh, partials)[:, : db.num_cols]
+        respond_packed_core(q_run[rows, cols], *db.shard(s, device), db.mat_elem_bit_len,
+                            db.num_cols, out=out[rows])
+
+    return _over_cells(mesh, queries.shape[0], db.c_pad, split_rows, add_partial)[:, : db.num_cols]
 
 
 def sharded_respond_packed_fn(mesh: Mesh, db: ShardedPlanes):
@@ -308,3 +323,93 @@ def sharded_hint_ctr_packed(mesh: Mesh, db: ShardedPlanes, seed: bytes) -> np.nd
                               db.mat_elem_bit_len, db.num_cols, out=partials[device])
     hint = _sum_partials(mesh, partials)[:, : db.num_cols]
     return hint.cpu().contiguous().numpy().view(np.uint32)
+
+
+# -- the digit2 layout over a mesh -------------------------------------------
+
+
+def pad_db_planes(p0: np.ndarray, p1: np.ndarray, num_shards: int):
+    """Zero-pad the m dimension to a multiple of the model axis; zero rows
+    contribute nothing to the products."""
+    m = p0.shape[0]
+    pad = (-m) % num_shards
+    if pad:
+        p0 = np.pad(p0, ((0, pad), (0, 0)))
+        p1 = np.pad(p1, ((0, pad), (0, 0)))
+    return p0, p1
+
+
+@dataclass
+class ShardedDigitPlane:
+    """One int8 digit plane, its rows split in `model` equal shards.
+    `shards` maps (s, device) to shard s on that device, zero-padded to the
+    shape `torch._int_mm` takes (`matmul_u32.pad_plane`); one tensor
+    however often the mesh names the pair."""
+
+    mesh: Mesh
+    shards: dict
+    m_pad: int  # rows, a multiple of the model axis
+    num_cols: int  # logical c
+
+    @property
+    def m_local(self) -> int:
+        return self.m_pad // self.mesh.shape["model"]
+
+
+def shard_db_planes(mesh: Mesh, p0: np.ndarray, p1: np.ndarray):
+    """Place the (m, c) int8 digit planes on the mesh: m sharded over
+    `model` (padded to a multiple of it), shared by the data rows. Returns
+    the two ShardedDigitPlane."""
+    p0, p1 = pad_db_planes(p0, p1, mesh.shape["model"])
+    m_pad, c = p0.shape
+    m_local = m_pad // mesh.shape["model"]
+    out = []
+    for p in (p0, p1):
+        shards = {}
+        for _, s, device in mesh.cells():
+            if (s, device) not in shards:
+                rows = np.ascontiguousarray(p[s * m_local : (s + 1) * m_local], np.int8)
+                shards[s, device] = pad_plane(torch.from_numpy(rows).to(device))
+        out.append(ShardedDigitPlane(mesh, shards, m_pad, c))
+    return tuple(out)
+
+
+def _respond_local(queries_u32: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor) -> torch.Tensor:
+    """Local-shard respond partial: (Q, m_local) x (m_local, C) -> int32."""
+    return _matmul_digits(queries_u32, d0, d1)
+
+
+def _sharded_digit_product(mesh: Mesh, queries, d0: ShardedDigitPlane, d1: ShardedDigitPlane,
+                           split_rows: bool) -> torch.Tensor:
+    if queries.shape[1] != d0.m_pad:
+        raise ValueError(f"query length {queries.shape[1]} != padded DB rows {d0.m_pad}")
+    m_local, c = d0.m_local, d0.num_cols
+
+    def add_partial(s, device, rows, out):
+        q = queries[rows, s * m_local : (s + 1) * m_local].to(device)
+        out[rows] += _respond_local(q, d0.shards[s, device], d1.shards[s, device])[:, :c]
+
+    return _over_cells(mesh, queries.shape[0], c, split_rows, add_partial)
+
+
+def sharded_respond_fn(mesh: Mesh):
+    """respond(queries, d0, d1): (Q, m_pad) int32 u32-bit queries x the
+    planes of `shard_db_planes` -> (Q, c) int32, query rows split over
+    `data` (Q a multiple of it), m over `model`, the int32 partials summed
+    exactly mod 2^32. The result lies on the mesh's first device, or on
+    the host after a gloo reduction."""
+    return lambda queries, d0, d1: _sharded_digit_product(mesh, queries, d0, d1, split_rows=True)
+
+
+def sharded_hint_accumulate_fn(mesh: Mesh):
+    """step(acc, a_u32, d0, d1): acc (R, c) int32 + A_block (R, m_pad) u32
+    bits . D, as a new tensor where the reduction leaves it.
+
+    A blocks are the same for every data row, their columns split over
+    `model`; the shards' digit products are summed into the accumulator."""
+
+    def step(acc, a_u32, d0, d1):
+        total = _sharded_digit_product(mesh, a_u32, d0, d1, split_rows=False)
+        return acc.to(total.device) + total
+
+    return step

@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from csrc/, checks each against its plain
 PyTorch version bit for bit (phase 3: the respond kernel's scan and
 tensor-core regimes at every hi-plane pack, Q from 1 to 1774, both
 regimes on both sides of their crossover, out accumulated twice, the
-hint fold's transposed view), then drives five paths, each with the
+hint fold's transposed view), then drives six paths, each with the
 launch counts set to 0 just before it and read just after:
 
 - phases 4-5, the ctr-mode serving path through the public entry points
@@ -44,7 +44,19 @@ launch counts set to 0 just before it and read just after:
   and 2 x 2 meshes, stream and ctr, b = 8 and derived, against the
   unsharded server (10b); then two processes that share this card, each
   with one shard, joined by torch.distributed (gloo): the demo's round
-  trip and its TCP serving loop (11).
+  trip and its TCP serving loop (11);
+- phase 12, the digit2 layout and the numpy oracle, which run no
+  hand-written kernel (their products are torch._int_mm and numpy's uint64
+  matmul): 2^14 entries, arity 3 and 4, stream and ctr, b derived and 13,
+  through Server.setup with layout="digit2" and layout="packed" on the
+  card, at several hint_block_rows, hint, filter and 40 responses the same
+  bytes; backend="numpy" beside them for two of those cases at 2^12
+  entries (12a); then the 2^20 DB through Server.setup(layout="digit2") in
+  stream mode (the cheaper mode for A off the host: ctr mode would run the
+  same Keccak work on one core, with nothing overlapped, and transpose
+  8.4 GB after it), hint and responses equal to phase 9b's packed server
+  byte for byte, save and load, and the digit2 respond timed beside the
+  packed kernel (12b).
 
 Imports nothing of jax or of the JAX package. Prints progress lines and
 each phase's wall time, then one JSON line with each kernel's launches on
@@ -78,6 +90,7 @@ import numpy as np
 NUM_ENTRIES, VALUE_LEN, ARITY = 1 << 20, 1024, 3
 STREAMING_ENTRIES = 1 << 21  # past the resident client planes' budget
 STREAM_CHECK_ENTRIES = 1 << 14  # small enough for the plain versions on the host
+ORACLE_ENTRIES = 1 << 12  # small enough for the numpy oracle's uint64 matmul on the host
 DEMO_DEADLINE_S = 180  # each form of the two-process demo
 RESPOND_PALLAS = ("chalametpir_tpu/ops/respond_pallas.py:184 (K1, `_kernel_with_hi`), "
                   "chalametpir_tpu/ops/respond_pallas.py:211 (K2, `_kernel_lo_only`)")
@@ -685,6 +698,7 @@ def main(argv=None) -> int:
     probe = [keys[int(i)] for i in rng.choice(n, size=16 + 64 + 4 + 8, replace=False)]
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    interop_rng_state = copy.deepcopy(rng.bit_generator.state)  # phase 12b draws the same filter
     # both setups run under torch.profiler, for the device's busy time
     with tempfile.TemporaryDirectory() as tmp:
         with telemetry.profile_to(os.path.join(tmp, "server")) as prof:
@@ -699,7 +713,7 @@ def main(argv=None) -> int:
             client_s = time.perf_counter() - t0
         client_device = device_ms(prof)
         del prof
-    query_ms, respond_ms = [], []
+    query_ms, respond_ms, singles = [], [], []
     for key in probe[:16]:
         t0 = time.perf_counter()
         qb = query(client, key)
@@ -709,6 +723,7 @@ def main(argv=None) -> int:
         respond_ms.append((time.perf_counter() - t0) * 1e3)
         if client.process_response(key, rb) != db[key]:
             raise AssertionError("stream-mode single query decoded a wrong value")
+        singles.append((qb, rb))
     batch_keys = probe[16:80]
     client.prepare_queries(len(batch_keys))
     qmat = np.stack([np.frombuffer(qb[8:], "<u4") for qb in client.query_batch(batch_keys)])
@@ -789,7 +804,11 @@ def main(argv=None) -> int:
     for name in ("respond_packed_scan", "respond_packed_mma"):
         launches[name] += stream_launches[name] + interop_launches[name] + persist_launches[name]
     launches["ctr_keccak"] += stream_launches["ctr_keccak"]
-    del db, loaded
+    # what the digit2 server of phase 12b must reproduce byte for byte, and
+    # the packed server (the loaded one: 1.36 GB of planes) to time beside it
+    interop = dict(seed=pir_seed, hint=hint, fparams=fparams, singles=singles, qmat=qmat, resp=resp,
+                   rng_state=interop_rng_state, setup_s=setup_s, packed=loaded)
+    del db, loaded, singles, qmat, resp
     torch.cuda.empty_cache()
     phase_done("phase 9b")
 
@@ -887,7 +906,7 @@ def main(argv=None) -> int:
             f"(4 launches into one buffer) {many_a:.3f}, {many_b:.3f} ms; one shard's launch "
             f"{cuda_ms(shard_fn, 20):.3f} ms, plain {cuda_ms(shard_ref, 3):.3f} ms, bound {shard_bnd[0]:.3f} ms "
             f"({shard_bnd[1]}), of the four {4 * shard_bnd[0]:.3f} ms")
-    del db20, server, planes, lo_all, hi_all, lo_s, hi_s, sharded_fn, queries, one_fn, many_fn, shard_fn, shard_ref, unsharded
+    del server, planes, lo_all, hi_all, lo_s, hi_s, sharded_fn, queries, one_fn, many_fn, shard_fn, shard_ref, unsharded
     torch.cuda.empty_cache()
     phase_done("phase 10")
 
@@ -963,6 +982,126 @@ def main(argv=None) -> int:
         f"respond, decoded; and the leader serving TCP, 2 keys fetched through net.client.fetch and decoded, "
         f"the worker released; {time.perf_counter() - t0:.1f} s")
     phase_done("phase 11")
+
+    # -- phase 12a: the digit2 layout and the numpy oracle, small --------------
+    from chalametpir_tpu_torch.ops import respond as respond_ops
+
+    pir_seed = rng.bytes(32)
+
+    def same_bytes(db, arity, mode, b, others: dict) -> str:
+        """Server.setup with each of `others` (name -> keywords) beside the
+        packed layout on the card: hint, filter and 40 responses must be
+        the same bytes, the torch servers' planes on the card, the oracle's
+        D on the host."""
+        def setup(**kw):
+            return Server.setup(pir_seed, db, arity=arity, prg_mode=mode, mat_elem_bit_len=b,
+                                rng=np.random.default_rng(args.seed), device=dev, **kw)
+
+        packed, hint, fparams = setup(layout="packed")
+        queries = rng.integers(0, 1 << 32, size=(40, packed.num_query_cols), dtype=np.uint32)
+        want = packed.respond_batch(queries)
+        what = f"{len(db)} entries, arity {arity}, {mode}, b={packed.mat_elem_bit_len}"
+        for name, kw in others.items():
+            server, other_hint, other_fparams = setup(**kw)
+            if kw.get("backend") == "numpy":
+                if not isinstance(server.planes, np.ndarray) or server.device.type != "cpu":
+                    raise AssertionError(f"{what}: the numpy oracle is not on the host")
+            elif server.device.type != "cuda":
+                raise AssertionError(f"{what}, {name}: planes are not on the card")
+            if kw.get("layout") == "digit2" and (server.layout, server.planes.d0.device.type) != ("digit2", "cuda"):
+                raise AssertionError(f"{what}, {name}: not digit planes on the card")
+            if (other_hint, other_fparams) != (hint, fparams):
+                raise AssertionError(f"{what}, {name}: hint or filter bytes differ from the packed server's")
+            if not np.array_equal(server.respond_batch(queries), want):
+                raise AssertionError(f"{what}, {name}: responses differ from the packed server's")
+        return f"{what}: packed = {' = '.join(others)}: hint, filter and 40 responses byte-identical"
+
+    db = build_db(STREAM_CHECK_ENTRIES, VALUE_LEN, args.seed + 2)
+    block_rows = itertools.cycle((1, 7, 1774))
+    for arity, mode, b in itertools.product((3, 4), ("stream", "ctr"), (None, 13)):
+        r = next(block_rows)
+        log("  " + same_bytes(db, arity, mode, b, {
+            "digit2": dict(layout="digit2"),
+            f"digit2, hint_block_rows={r}": dict(layout="digit2", hint_block_rows=r),
+            f"packed, hint_block_rows={r}": dict(layout="packed", hint_block_rows=r)}))
+    # the oracle's hint is one uint64 numpy matmul, 1774 x m x c, on one
+    # core: at 2^14 entries a setup took 107-133 s on the host of an H100
+    # machine, so its two cases (both arities, modes and widths between
+    # them) run at 2^12 entries, the values as wide as everywhere
+    db = build_db(ORACLE_ENTRIES, VALUE_LEN, args.seed + 3)
+    for arity, mode, b in ((3, "stream", None), (4, "ctr", 13)):
+        t0 = time.perf_counter()
+        line = same_bytes(db, arity, mode, b, {"numpy": dict(backend="numpy"), "digit2": dict(layout="digit2")})
+        log(f"  {line} ({time.perf_counter() - t0:.1f} s)")
+    del db
+    torch.cuda.empty_cache()
+    phase_done("phase 12a")
+
+    # -- phase 12b: the digit2 layout at 2^20, beside phase 9b's packed server --
+    filter_rng = np.random.default_rng()
+    filter_rng.bit_generator.state = interop["rng_state"]
+    t0 = time.perf_counter()
+    server, hint, fparams = Server.setup(interop["seed"], db20, arity=ARITY, prg_mode="stream", rng=filter_rng,
+                                         device=dev, layout="digit2")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    planes, packed = server.planes, interop["packed"]
+    if (server.layout, planes.d0.device.type, planes.d1.device.type) != ("digit2", "cuda", "cuda"):
+        raise AssertionError("the digit2 planes are not on the card")
+    if (hint, fparams) != (interop["hint"], interop["fparams"]):
+        raise AssertionError("the digit2 setup's hint or filter bytes differ from phase 9b's packed server's")
+    respond_ms = []
+    for qb, rb in interop["singles"]:
+        t0 = time.perf_counter()
+        got = server.respond(qb)
+        respond_ms.append((time.perf_counter() - t0) * 1e3)
+        if got != rb:
+            raise AssertionError("a digit2 response differs from the packed server's")
+    t0 = time.perf_counter()
+    resp = server.respond_batch(interop["qmat"])
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(resp, interop["resp"]):
+        raise AssertionError("the digit2 respond_batch differs from the packed server's")
+    log(f"  Server.setup(layout=\"digit2\"), stream mode: {setup_s:.2f} s (packed, phase 9b: "
+        f"{interop['setup_s']:.2f} s), stats {server.setup_stats}")
+    log(f"  hint, filter, {len(respond_ms)} responses and a respond_batch of {len(resp)} byte-identical to the "
+        f"packed server's; planes {planes.device_bytes} B on {planes.device}; server.respond median "
+        f"{statistics.median(respond_ms):.3f} ms, respond_batch {batch_ms:.3f} ms (host wall)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "digit2.npz")
+        t0 = time.perf_counter()
+        server.save(path)
+        save_s = time.perf_counter() - t0
+        archive_bytes = os.path.getsize(path)
+        del server, planes
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        server = Server.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    planes = server.planes
+    if (server.layout, planes.d0.device.type) != ("digit2", "cuda"):
+        raise AssertionError("Server.load did not rebuild the digit2 planes on the card")
+    if any(server.respond(qb) != rb for qb, rb in interop["singles"][:4]) or not np.array_equal(
+            server.respond_batch(interop["qmat"]), interop["resp"]):
+        raise AssertionError("the loaded digit2 server's responses differ")
+    log(f"  Server.save {save_s:.2f} s ({archive_bytes} B archive), Server.load {load_s:.2f} s; 4 responses and "
+        f"the batch byte-identical")
+    # the digit2 respond (torch._int_mm, no hand-written kernel) beside the packed kernel, in turns
+    for q in (1, 64):
+        queries = torch.from_numpy(
+            rng.integers(0, 1 << 32, size=(q, server.num_query_cols), dtype=np.uint32).view(np.int32)).to(dev)
+        digit_fn = lambda: respond_ops.respond_batch(queries, planes.d0, planes.d1)  # noqa: E731
+        packed_fn = lambda: rp.respond_batch_packed(queries, packed.planes)  # noqa: E731
+        if not torch.equal(digit_fn()[:, : planes.num_cols], packed_fn()):
+            raise AssertionError(f"digit2 and packed respond differ at Q={q}")
+        times = cuda_ms(packed_fn, 10), cuda_ms(digit_fn, 5), cuda_ms(digit_fn, 5), cuda_ms(packed_fn, 10)
+        log(f"  respond Q={q} at 2^20, CUDA-event medians, {smi}: packed kernel ({regime(q, packed.mat_elem_bit_len)}) "
+            f"{times[0]:.3f}, {times[3]:.3f} ms; digit2 (torch._int_mm, {-(-planes.d0.shape[0] // (1 << 16))} "
+            f"K pieces x 2 planes) {times[1]:.3f}, {times[2]:.3f} ms")
+    del db20, server, planes, packed, interop, queries, digit_fn, packed_fn
+    torch.cuda.empty_cache()
+    phase_done("phase 12b")
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
     print(json.dumps({"kernels": [

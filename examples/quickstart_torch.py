@@ -2,11 +2,12 @@
 small database through chalametpir_tpu_torch.
 
     python examples/quickstart_torch.py [--entries 2000] [--prg-mode ctr]
-        [--device cuda]
+        [--device cuda] [--backend auto]
 
 --device cuda (the default) runs the hand-written kernels and fails
-without a CUDA device; --device cpu runs their plain versions. The times
-printed are host wall clock around each call.
+without a CUDA device; --device cpu runs their plain versions. --backend
+numpy serves from the host oracle (uint64 numpy matmuls; the client still
+runs on --device). The times printed are host wall clock around each call.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ def main(argv=None) -> None:
     ap.add_argument("--prg-mode", default="ctr", choices=("ctr", "stream"),
                     help="ctr = A generated on the device; stream = reference-interop")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--backend", default="auto", choices=("auto", "torch", "numpy"),
+                    help="the server's backend: torch (also auto) on --device, numpy = the host oracle")
     ap.add_argument("--pool", type=int, default=4, help="FrodoPIR offline query preprocessing depth")
     args = ap.parse_args(argv)
 
@@ -39,10 +42,12 @@ def main(argv=None) -> None:
 
     t0 = time.perf_counter()
     server, hint, filter_params = Server.setup(
-        seed, db, arity=3, prg_mode=args.prg_mode, rng=rng, device=args.device
+        seed, db, arity=3, prg_mode=args.prg_mode, rng=rng, device=args.device,
+        backend=args.backend,
     )
     print(f"server setup: {time.perf_counter()-t0:.2f}s ({args.entries} entries, "
-          f"b={server.mat_elem_bit_len}, planes on {server.device})")
+          f"b={server.mat_elem_bit_len}, {server.backend} backend, {server.layout} layout, "
+          f"on {server.device})")
 
     t0 = time.perf_counter()
     client = Client.setup(seed, hint, filter_params, prg_mode=args.prg_mode,

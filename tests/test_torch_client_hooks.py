@@ -195,3 +195,9 @@ def test_port_exports_the_jax_package_surface(name):
         assert ours == getattr(chalametpir_tpu, name)
     else:
         assert isinstance(ours, type) and ours.__module__.startswith("chalametpir_tpu_torch.")
+
+
+def test_port_reports_the_jax_package_version():
+    import chalametpir_tpu
+
+    assert chalametpir_tpu_torch.__version__ == chalametpir_tpu.__version__

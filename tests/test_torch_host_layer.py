@@ -256,6 +256,92 @@ def test_native_engine_matches_jax(case, rng):
         assert np.array_equal(engine.XofStream(seed).squeeze(1000), jax_engine.XofStream(seed).squeeze(1000))
 
 
+@pytest.mark.parametrize("case", ["turboshake128", "encode_rows", "assemble_rows", "decrypt_decode_row",
+                                  "client_process_response", "recover_value"])
+def test_remaining_native_bindings_match_jax(case, rng):
+    """The bindings the port's engine.py lacked though its engine.cpp had
+    their symbols, and core/encode_db.recover_value: each against the JAX
+    package's on the same bytes."""
+    from chalametpir_tpu.core import encode_db as jax_encode
+    from chalametpir_tpu.native import engine as jax_engine
+
+    b, arity = 10, 3
+    db = _db(23, 400)
+    keys, values = list(db), list(db.values())
+    digests = hashing.hash_of_keys_batch(keys)
+    digest_bytes = np.ascontiguousarray(digests).view(np.uint8).reshape(len(keys), 32)
+    cols = codec.encoded_row_width(max(map(len, values)), b)
+    if case == "turboshake128":
+        for data, n in ((b"", 1), (b"abc", 32), (rng.bytes(500), 1000)):
+            assert engine.turboshake128(data, n) == jax_engine.turboshake128(data, n)
+        assert engine.turboshake128(b"abc", 200)[:32] == keccak.turboshake128(b"abc", 32)
+    elif case == "encode_rows":
+        got = engine.encode_rows(digest_bytes, values, b, cols)
+        assert got.dtype == np.uint32 and np.array_equal(got, jax_engine.encode_rows(digest_bytes, values, b, cols))
+        assert np.array_equal(got, codec.encode_rows(digest_bytes, values, b, cols))
+        with pytest.raises(ValueError):
+            engine.encode_rows(digest_bytes, values, b, cols - 8)
+    elif case == "assemble_rows":
+        filt, reverse_order, reverse_h, key_index = bff.construct_filter(digests, arity, b, 100, np.random.default_rng(5))
+        enc = engine.encode_rows(digest_bytes[key_index], [values[i] for i in key_index], b, cols)
+        geometry = dict(arity=filt.arity, seg_len=filt.segment_length, seg_cnt_len=filt.segment_count_length)
+        mats = []
+        for eng in (engine, jax_engine):
+            mat = np.zeros((filt.num_fingerprints, cols), np.uint32)
+            assert eng.assemble_rows(mat, enc, reverse_order, reverse_h, None, b, **geometry) is mat
+            mats.append(mat)
+        assert np.array_equal(mats[0], mats[1]) and mats[0].any()
+        fused = engine.encode_assemble_rows16(digest_bytes, values, key_index, reverse_order, reverse_h, b, cols,
+                                              filt.num_fingerprints, filt.arity, filt.segment_length,
+                                              filt.segment_count_length)
+        assert np.array_equal(mats[0].astype(np.uint16), fused)
+        with pytest.raises(ValueError):
+            engine.assemble_rows(mats[0], enc, reverse_order, reverse_h, None, b, **{**geometry, "arity": 5})
+    elif case == "recover_value":
+        mat, filt = encode_db.from_kv_database(db, arity, b, rng=np.random.default_rng(5))
+        for key in keys[:5]:
+            assert encode_db.recover_value(mat, key, filt) == db[key] == jax_encode.recover_value(mat, key, filt)
+        with pytest.raises(Exception) as port_exc:
+            encode_db.recover_value(mat, b"not a key of this DB", filt)
+        with pytest.raises(Exception) as jax_exc:
+            jax_encode.recover_value(mat, b"not a key of this DB", filt)
+        assert type(port_exc.value).__name__ == type(jax_exc.value).__name__
+    else:
+        # a real response and its unblinding vector, from the numpy oracle
+        from chalametpir_tpu_torch import Client, Server
+
+        seed = rng.bytes(32)
+        server, hint, fparams = Server.setup(seed, db, arity=arity, backend="numpy", mat_elem_bit_len=b,
+                                             rng=np.random.default_rng(5))
+        client = Client.setup(seed, hint, fparams, device="cpu")
+        key = keys[7]
+        while True:
+            try:
+                query = client.query(key)
+                break
+            except port_errors.ArithmeticOverflowAddingQueryIndicator:
+                continue
+        resp = matrix_io.matrix_from_bytes(server.respond(query))[0]
+        vec_c, filt = client._pending[key].vec_c, client._filter
+        h = int(hashing.mix256(hashing.hash_of_key(key), filt.seed))
+        noise = rng.integers(0, 1 << 32, size=resp.shape, dtype=np.uint32)
+        if case == "decrypt_decode_row":
+            kv = engine.decrypt_decode_row(resp, vec_c, b, h)
+            assert kv == jax_engine.decrypt_decode_row(resp, vec_c, b, h)
+            assert kv[:32] == digest_bytes[7].tobytes() and kv[32:] == db[key]
+            assert engine.decrypt_decode_row(noise, vec_c, b, h) == jax_engine.decrypt_decode_row(noise, vec_c, b, h)
+        else:
+            got = engine.client_process_response(key, filt.seed, resp, vec_c, b)
+            assert got == jax_engine.client_process_response(key, filt.seed, resp, vec_c, b) == db[key]
+            for other_key, row in ((keys[8], resp), (key, noise)):
+                assert engine.client_process_response(other_key, filt.seed, row, vec_c, b) == \
+                    jax_engine.client_process_response(other_key, filt.seed, row, vec_c, b)
+            assert engine.client_process_response(keys[8], filt.seed, resp, vec_c, b) in (-1, -2)
+            with pytest.raises(ValueError):
+                engine.client_process_response(key, b"short", resp, vec_c, b)
+        assert client.process_response(key, server.respond(query)) == db[key]
+
+
 @pytest.mark.parametrize("case", ["hi_bits", "hi_pack_factor"])
 def test_hi_plane_geometry_matches_jax(case):
     from chalametpir_tpu.ops import packed

@@ -5,7 +5,9 @@ save/load, a fetch through the port's TCP server and client, telemetry
 with its profiler and trace lines, the public names and the client's
 benchmarking hooks, the digit-layout respond and the scan diagnostic's
 checks, a sharded server over an in-process mesh and the single-process
-contracts of parallel/multihost, run in a subprocess where importing jax
+contracts of parallel/multihost, the digit2 layout and the numpy oracle
+(ops/packed, ops/matmul_u32, ops/respond, the digit2 shard functions, the
+setup diagnostics), run in a subprocess where importing jax
 or chalametpir_tpu raises; the two-process demo and the quickstart under
 the same block; and no source of the port (parallel/ included), nor
 chip_smoke.py, nor examples/quickstart_torch.py, imports either."""
@@ -33,8 +35,12 @@ import torch
 import chalametpir_tpu_torch
 from chalametpir_tpu_torch import Client, Server, convert, kernels
 from chalametpir_tpu_torch import Query, BinaryFuseFilter, SEED_BYTE_LEN, LWE_DIMENSION
-from chalametpir_tpu_torch.diag import scan_qd
+from chalametpir_tpu_torch.diag import digit2_blocks, profile_setup, scan_qd
 from chalametpir_tpu_torch.ops import client_device, digits, prg_torch, respond_digits, respond_packed
+from chalametpir_tpu_torch.ops import matmul_u32, packed, respond
+from chalametpir_tpu_torch.core import encode_db
+from chalametpir_tpu_torch.native import engine as native_engine
+from chalametpir_tpu_torch.parallel import shard_db_planes, sharded_hint_accumulate_fn, sharded_respond_fn
 from chalametpir_tpu_torch.ops.client_device import StreamingQueryEngine
 from chalametpir_tpu_torch.net import client as net_client, server as net_server
 from chalametpir_tpu_torch.parallel import make_mesh, multihost, multihost_demo, sharding
@@ -112,6 +118,38 @@ geo = scan_qd.Geometry(0, 9, 3000, 200)
 gen = torch.Generator().manual_seed(1)
 scan_qd.check(scan_qd.synthetic_planes(geo, "cpu", gen),
               torch.randint(-(1 << 31), 1 << 31, (8, geo.m), dtype=torch.int32, generator=gen))
+# the digit2 layout, the numpy oracle and their library functions
+oracle, oracle_hint, oracle_fparams = Server.setup(seed, db, backend="numpy", rng=np.random.default_rng(9))
+digit2, digit2_hint, _ = Server.setup(seed, db, layout="digit2", hint_block_rows=100,
+                                      rng=np.random.default_rng(9), device="cpu")
+assert isinstance(oracle.planes, np.ndarray) and isinstance(digit2.planes, respond.DigitPlanes)
+assert oracle_hint == digit2_hint == again_hint
+q_np = queries.numpy().view(np.uint32)
+assert np.array_equal(oracle.respond_batch(q_np), digit2.respond_batch(q_np))
+assert np.array_equal(oracle.respond_batch(q_np), again.respond_batch(q_np))
+digit2.save(os.path.join(tmp, "digit2"))
+oracle.save(os.path.join(tmp, "oracle"))
+assert Server.load(os.path.join(tmp, "digit2"), device="cpu").layout == "digit2"
+assert Server.load(os.path.join(tmp, "oracle")).backend == "numpy"
+assert np.array_equal(packed.unpack_db(packed.pack_db(oracle.planes, oracle.mat_elem_bit_len)), oracle.planes)
+p0, p1 = digits.db_digit_planes_np(oracle.planes)
+want = matmul_u32.matmul_u32_np(q_np, oracle.planes.astype(np.uint32))
+assert np.array_equal(matmul_u32.matmul_u32_x_db(queries, torch.from_numpy(p0), torch.from_numpy(p1))
+                      .numpy().view(np.uint32), want)
+d0, d1 = shard_db_planes(mesh, p0, p1)
+q_pad = torch.zeros((4, d0.m_pad), dtype=torch.int32)
+q_pad[:3, : queries.shape[1]] = queries
+assert np.array_equal(sharded_respond_fn(mesh)(q_pad, d0, d1)[:3].numpy().view(np.uint32), want)
+step = sharded_hint_accumulate_fn(mesh)
+assert torch.equal(step(torch.zeros((4, d0.num_cols), dtype=torch.int32), q_pad, d0, d1)[:3],
+                   torch.from_numpy(want.view(np.int32)))
+some_key = next(iter(db))
+filt = BinaryFuseFilter.from_bytes(oracle_fparams)
+assert encode_db.recover_value(oracle.planes.astype(np.uint32), some_key, filt) == db[some_key]
+assert len(native_engine.turboshake128(b"abc", 40)) == 40
+with contextlib.redirect_stderr(io.StringIO()) as profile_out:
+    assert profile_setup.main(["8", "3", "--device", "cpu", "--prg-mode", "stream"]) == 0
+assert "setup_stats.cpu_s" in profile_out.getvalue() and callable(digit2_blocks.main)
 import shutil
 shutil.rmtree(tmp)
 assert not any(m in ("jax", "chalametpir_tpu") or m.startswith(("jax.", "chalametpir_tpu."))
@@ -186,6 +224,8 @@ def test_port_sources_do_not_import_jax():
     root = pathlib.Path(chalametpir_tpu_torch.__file__).parent
     paths = [*root.rglob("*.py"), root.parent / "chip_smoke.py", root.parent / "examples" / "quickstart_torch.py"]
     assert {"sharding.py", "multihost.py", "multihost_demo.py"} <= {p.name for p in paths if p.parent.name == "parallel"}
+    assert {"packed.py", "matmul_u32.py", "respond.py", "digits.py"} <= {p.name for p in paths if p.parent.name == "ops"}
+    assert {"profile_setup.py", "digit2_blocks.py"} <= {p.name for p in paths if p.parent.name == "diag"}
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()

@@ -1,9 +1,8 @@
 """Faults of the port against the JAX package, repaired, each driven through
 both packages: the `device` values of the JAX client, the order of the
 setup argument checks, the dispatcher's `respond_batch_fn` hook and
-`pad_batches`, and `telemetry.trace_enabled`; and the decided difference
-that `backend`, `layout` and `hint_block_rows` are not parameters of the
-port's Server.setup.
+`pad_batches`, `telemetry.trace_enabled`, and the `backend`, `layout` and
+`hint_block_rows` parameters of Server.setup, which the port lacked.
 
 The JAX reference is imported inside the tests that use it, so the
 `cuda` tier (`make check-cuda`) also runs on a GPU host without jax."""
@@ -220,12 +219,21 @@ def test_trace_enabled_follows_set_trace():
 
 @pytest.mark.parametrize("kw", [{"backend": "numpy"}, {"layout": "packed"}, {"hint_block_rows": 64}])
 def test_setup_parameters_the_port_does_not_have(kw, rng):
-    """Decided difference: the JAX Server.setup chooses a backend, a layout
-    and a hint block size; the port has one of each and no such
-    parameters."""
+    """Repaired: the port's Server.setup raised TypeError on `backend`,
+    `layout` and `hint_block_rows`. It takes them now, and the same call
+    through both packages gives the same hint, filter and response bytes
+    (the JAX side under its own name for the device backend)."""
     import chalametpir_tpu
 
     seed = rng.bytes(32)
-    chalametpir_tpu.Server.setup(seed, DEMO_DB, rng=rng, **{"backend": "numpy", **kw})
-    with pytest.raises(TypeError):
-        Server.setup(seed, DEMO_DB, rng=rng, device="cpu", **kw)
+    state = rng.bit_generator.state
+    want_server, want_hint, want_filter = chalametpir_tpu.Server.setup(
+        seed, DEMO_DB, rng=rng, **{"backend": "jax", **kw})
+    rng.bit_generator.state = state
+    server, hint, fparams = Server.setup(seed, DEMO_DB, rng=rng, device="cpu", **kw)
+    assert (hint, fparams) == (want_hint, want_filter)
+    q = np.random.default_rng(1).integers(0, 1 << 32, size=(3, server.num_query_cols), dtype=np.uint32)
+    assert server.respond_batch(q).tobytes() == want_server.respond_batch(q).tobytes()
+    assert server.backend == kw.get("backend", "torch")
+    # layout "auto" packs at every width here and takes digit2 from b = 13 there
+    assert server.layout == want_server._layout or "layout" not in kw

@@ -1,6 +1,6 @@
 """Save and load in the port, and across the port and the JAX package:
 server archives in both directions (the port writes the JAX package's
-packed layout and reads its packed, numpy and digit2 archives), paths
+archive layouts and reads its packed, numpy and digit2 archives), paths
 without a suffix, and client archives with pending queries in both PRG
 modes. Responses are compared for exact equality.
 
@@ -85,9 +85,9 @@ def test_port_archive_loads_in_jax(mode, rng, tmp_path):
      ("jax", "auto", 13), ("numpy", "auto", 13)],
 )
 def test_jax_archives_load_in_port(backend, layout, bit_len, rng, tmp_path):
-    """Each archive kind the JAX package writes: packed planes load as
-    they are, numpy (D itself) and digit2 (D's two digit planes) are
-    packed on load; responses are the JAX server's."""
+    """Each archive kind the JAX package writes: packed planes, numpy (D
+    itself) and digit2 (D's two digit planes) load as the backend and the
+    layout the archive names; responses are the JAX server's."""
     import chalametpir_tpu
 
     db = generate_random_kv_database(300, rng=rng, value_byte_len=(1, 64))

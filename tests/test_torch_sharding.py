@@ -1,6 +1,7 @@
 """The port's sharded serving path (chalametpir_tpu_torch/parallel/
 sharding.py, Server.setup(mesh=...), `net.server --mesh`) on in-process
-meshes of CPU shards, after tests/test_sharding.py's packed cases. Each
+meshes of CPU shards, after tests/test_sharding.py's packed cases, and at
+the end the digit2 shard functions after its digit2 cases. Each
 case holds the port against the JAX package's sharded path on its
 8-device virtual CPU mesh (Pallas interpreted) and against the port's own
 unsharded server. Every value is a u32 mod 2^32: exact equality,
@@ -23,8 +24,12 @@ from chalametpir_tpu_torch.ops import respond_packed as rp
 from chalametpir_tpu_torch.parallel import (
     build_sharded_pallas_db,
     make_mesh,
+    pad_db_planes,
+    shard_db_planes,
+    sharded_hint_accumulate_fn,
     sharded_hint_ctr_packed,
     sharded_hint_packed_fn,
+    sharded_respond_fn,
     sharded_respond_packed_fn,
 )
 from chalametpir_tpu_torch.parallel import sharding as sh
@@ -495,3 +500,99 @@ def test_sharded_server_on_the_card_matches_unsharded(mode, cuda):
     client = Client.setup(seed, hint, fparams, prg_mode=mode, device=cuda)
     for key in list(db)[:3]:
         assert client.process_response(key, server.respond(_query(client, key))) == db[key]
+
+
+# -- the digit2 shard functions (library functions: the sharded server packs) ----
+
+DIGIT2_SHAPES = [(1, 4), (2, 2), (2, 4)]
+
+
+def _digit_case(rng, q, m, c, b):
+    from chalametpir_tpu_torch.ops import digits
+
+    queries = rng.integers(0, 1 << 32, size=(q, m), dtype=np.uint32)
+    queries[0, :2] = [0x7F7F7F80, 0xFFFFFFFF]
+    mat = rng.integers(0, 1 << b, size=(m, c), dtype=np.uint32)
+    return queries, mat, digits.db_digit_planes_np(mat)
+
+
+@pytest.mark.parametrize("m", [509, 512])
+@pytest.mark.parametrize("shape", DIGIT2_SHAPES)
+def test_digit2_sharded_respond_matches_jax_and_unsharded(shape, m, rng):
+    """pad_db_planes / shard_db_planes / sharded_respond_fn: m = 509 is no
+    multiple of any model axis here, so the planes are zero-padded."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from chalametpir_tpu.parallel import pad_db_planes as jax_pad
+    from chalametpir_tpu.parallel import shard_db_planes as jax_shard
+    from chalametpir_tpu.parallel import sharded_respond_fn as jax_respond_fn
+    from chalametpir_tpu_torch.ops import respond
+
+    data, model = shape
+    q, c = 2 * data, 27
+    queries, mat, (p0, p1) = _digit_case(rng, q, m, c, 14)
+    padded, want_padded = pad_db_planes(p0, p1, model), jax_pad(p0, p1, model)
+    assert all(a.tobytes() == b.tobytes() and a.shape == b.shape for a, b in zip(padded, want_padded))
+    mesh, jmesh = _mesh(shape), _jax_mesh(shape)
+    d0, d1 = shard_db_planes(mesh, p0, p1)
+    j0, j1 = jax_shard(jmesh, p0, p1)
+    assert d0.m_pad == d1.m_pad == j0.shape[0] == -(-m // model) * model and d0.num_cols == c
+    assert len(d0.shards) == model and all(t.dtype == torch.int8 for t in d0.shards.values())
+    q_pad = np.pad(queries, ((0, 0), (0, d0.m_pad - m)))
+    got = _u32(sharded_respond_fn(mesh)(_i32(q_pad), d0, d1))
+    want = np.asarray(jax_respond_fn(jmesh)(jax.device_put(q_pad, NamedSharding(jmesh, P("data", "model"))), j0, j1))
+    assert got.shape == (q, c) and np.array_equal(got, want) and np.array_equal(got, _oracle(queries, mat))
+    unsharded = respond.respond_batch(_i32(queries), torch.from_numpy(p0), torch.from_numpy(p1))
+    assert np.array_equal(got, _u32(unsharded))
+    assert np.array_equal(_u32(sh._respond_local(_i32(queries), torch.from_numpy(p0), torch.from_numpy(p1))), got)
+    with pytest.raises(ValueError):
+        sharded_respond_fn(mesh)(_i32(queries[:, :-1]), d0, d1)
+    if data > 1:
+        with pytest.raises(ValueError):
+            sharded_respond_fn(mesh)(_i32(q_pad[:1]), d0, d1)
+
+
+@pytest.mark.parametrize("shape", DIGIT2_SHAPES)
+def test_digit2_sharded_hint_accumulate_matches_jax(shape, rng):
+    """sharded_hint_accumulate_fn: two steps over two halves of the DB rows
+    add up to A . D; every step equals the JAX step on the same inputs."""
+    import jax.numpy as jnp
+
+    from chalametpir_tpu.parallel import shard_db_planes as jax_shard
+    from chalametpir_tpu.parallel import sharded_hint_accumulate_fn as jax_accumulate_fn
+
+    r, m, c = 16, 256, 24
+    a, mat, (p0, p1) = _digit_case(rng, r, m, c, 12)
+    mesh, jmesh = _mesh(shape), _jax_mesh(shape)
+    step, jstep = sharded_hint_accumulate_fn(mesh), jax_accumulate_fn(jmesh)
+    acc = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(r, c), dtype=np.int32))
+    start = acc.clone()
+    jacc = jnp.asarray(acc.numpy())
+    half = m // 2
+    for rows in (slice(0, half), slice(half, m)):
+        d0, d1 = shard_db_planes(mesh, p0[rows], p1[rows])
+        j0, j1 = jax_shard(jmesh, p0[rows], p1[rows])
+        acc = step(acc, _i32(a[:, rows]), d0, d1)
+        jacc = jstep(jacc, a[:, rows], j0, j1)
+        assert np.array_equal(acc.numpy(), np.asarray(jacc))
+    assert np.array_equal(_u32(acc), _oracle(a, mat) + start.numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_cuda_digit2_shard_functions_equal_the_cpu_run(shape, cuda):
+    g = np.random.default_rng(23)
+    data, model = shape
+    queries, mat, (p0, p1) = _digit_case(g, 2 * data, 70001, 27, 14)
+    out = {}
+    for device in ("cpu", cuda):
+        mesh = _mesh(shape, device)
+        d0, d1 = shard_db_planes(mesh, p0, p1)
+        q_pad = np.pad(queries, ((0, 0), (0, d0.m_pad - queries.shape[1])))
+        got = sharded_respond_fn(mesh)(_i32(q_pad), d0, d1)
+        acc = sharded_hint_accumulate_fn(mesh)(torch.ones((len(queries), 27), dtype=torch.int32), _i32(q_pad), d0, d1)
+        assert got.device.type == acc.device.type == torch.device(device).type
+        out[str(device)] = _u32(got), _u32(acc)
+    assert np.array_equal(out["cpu"][0], out["cuda"][0]) and np.array_equal(out["cpu"][1], out["cuda"][1])
+    assert np.array_equal(out["cuda"][0], _oracle(queries, mat))
