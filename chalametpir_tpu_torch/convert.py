@@ -25,7 +25,7 @@ def planes_from_numpy(lo, hi, b: int, num_rows: int, num_cols: int, device) -> P
 
 
 def _server(planes: PackedPlanes) -> Server:
-    return Server(planes, planes.num_rows, planes.num_cols)
+    return Server("torch", planes, planes.num_rows, planes.num_cols, planes.mat_elem_bit_len, "packed")
 
 
 def server_from_jax(server, device) -> Server:

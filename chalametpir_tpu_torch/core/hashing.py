@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..native import engine as _native
+from ..params import HASHED_KEY_BYTE_LEN  # noqa: F401  (re-exported, as in the JAX package)
+from .keccak import turboshake128, turboshake128_batch  # noqa: F401  (re-exported, as in the JAX package)
 
 _M1 = np.uint64(0xFF51AFD7ED558CCD)
 _M2 = np.uint64(0xC4CEB9FE1A85EC53)

@@ -38,7 +38,7 @@ from typing import Iterator
 import numpy as np
 
 from ..native import engine as _native
-from .keccak import RATE
+from .keccak import RATE, TurboShake128, turboshake128_batch  # noqa: F401  (re-exported, as in the JAX package)
 
 PRG_MODES = ("stream", "ctr")
 

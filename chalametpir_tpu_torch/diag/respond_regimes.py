@@ -115,11 +115,11 @@ def run(seed: int = 0, log=print) -> dict:
             slab = torch.randint(-(1 << 31), 1 << 31, (rows_, LWE_ROWS), dtype=torch.int32,
                                  device=device, generator=gen)
             want = respond_packed_ref(slab.t(), lo, hi, geo.b, geo.cols)
-            if not torch.equal(hint_fold_partial(slab, lo, hi, geo.b, geo.cols), want):
+            if not torch.equal(hint_fold_partial(slab.t(), lo, hi, geo.b, geo.cols), want):
                 raise AssertionError("the hint fold differs from plain")
             plane_bytes = lo.numel() + (hi.numel() if hi is not None else 0)
             bound = bounds(LWE_ROWS, rows_, geo.c_pad, plane_bytes, geo.b)
-            ms = cuda_ms(lambda: hint_fold_partial(slab, lo, hi, geo.b, geo.cols), 5)
+            ms = cuda_ms(lambda: hint_fold_partial(slab.t(), lo, hi, geo.b, geo.cols), 5)
             emit({"height": log_n, "b": geo.b, "q": LWE_ROWS, "rows": rows_, "regime": "mma",
                   "shape": "ctr hint fold chunk", "ms": ms, **bound})
             del lo, hi, slab, want

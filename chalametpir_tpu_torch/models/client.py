@@ -6,12 +6,15 @@ query_inline, query_batch and process_response, the pending-query
 reservation and compare-and-pop, FrodoPIR's prepared-query pool and its
 refill thread, save/load and the ternary sampling — with its wire bytes
 and its concurrency contract unchanged, on the port's own native engine.
-Only setup is the port's: it builds one of the port's engines on an
-explicit device. In ctr mode A is generated on the device by the ctr
-Keccak kernel, and the engine is chosen by the JAX client's rule, with
-the same constant, so both packages pick the same engine: resident A
-planes (4 * m * LWE_DIMENSION bytes) up to RESIDENT_PLANES_MAX_BYTES,
-the streaming engine past it. In stream mode (the default, the
+The constructor is the JAX client's: a device engine, or with none the
+host engine, which computes s . A from a host copy of A (`pub_mat_a`)
+with the native ternary matvec. Only setup is the port's: it builds one
+of the port's device engines on an explicit device. In ctr mode A is
+generated on the device by the ctr Keccak kernel, and the engine is
+chosen by the JAX client's rule, with the same constant, so both
+packages pick the same engine: resident A planes (4 * m *
+LWE_DIMENSION bytes) up to RESIDENT_PLANES_MAX_BYTES, the streaming
+engine past it. In stream mode (the default, the
 reference's serial XOF) the host XOF expands A row block by row block
 into resident planes on the device, as the JAX client does.
 """
@@ -39,7 +42,7 @@ from ..errors import (
     RowNotDecodable,
 )
 from ..native import engine as _native
-from ..ops.client_device import DeviceQueryEngine, StreamingQueryEngine
+from ..ops.client_device import STREAM_A_BLOCK_ROWS, DeviceQueryEngine, StreamingQueryEngine
 from ..params import LWE_DIMENSION, SEED_BYTE_LEN, SERVER_SETUP_MAX_ATTEMPT_COUNT, query_indicator
 from ..utils import telemetry
 from .server import resolve_device
@@ -49,11 +52,6 @@ from .server import resolve_device
 # 16 GB TPU, where the serving DB usually co-tenants), so both packages
 # pick the same engine
 RESIDENT_PLANES_MAX_BYTES = 8 << 30
-
-# A rows per uploaded block in stream mode: the recode writes r-byte runs
-# into the fingerprint-major planes, and the host holds two blocks in
-# flight (64 x m x 4 bytes each, 302 MB at 2^20 entries)
-STREAM_A_BLOCK_ROWS = 64
 
 
 def _timed_blocks(blocks, stats: dict):
@@ -96,9 +94,12 @@ class Query:
 
 
 class Client:
-    def __init__(self, engine, hint_mat_m: np.ndarray, filt: BinaryFuseFilter, seed: bytes,
-                 prg_mode: str = "stream"):
-        self._engine = engine  # the s . A engine (ops/client_device.py)
+    def __init__(self, pub_mat_a: np.ndarray | None, hint_mat_m: np.ndarray, filt: BinaryFuseFilter,
+                 device_engine=None, seed: bytes | None = None, prg_mode: str = "stream"):
+        # A as a (k, m) uint32 host matrix, for the host engine: read only
+        # when there is no device engine
+        self._pub_mat_a = pub_mat_a
+        self._engine = device_engine  # the s . A engine (ops/client_device.py)
         self._hint_mat_m = hint_mat_m
         self._filter = filt
         self._seed = seed  # retained for save(); public protocol material
@@ -121,6 +122,7 @@ class Client:
         # between the native return and the .tobytes() copy
         self._resp_out = threading.local()
         # filled by setup(): wall/cpu attribution and the engine chosen
+        # (empty when the client was constructed directly)
         self.setup_stats: dict = {}
         # filled by prepare_queries(); phase split of the last batch
         # (host sampling/unblinding vs residual device wait vs b readback)
@@ -161,9 +163,9 @@ class Client:
         if prg_mode == "ctr":
             streaming = uses_streaming(m)
             if streaming:
-                engine = StreamingQueryEngine(seed, m, device)
+                engine = StreamingQueryEngine(seed, m, device=device)
             else:
-                engine = DeviceQueryEngine.from_seed_ctr(seed, m, device)
+                engine = DeviceQueryEngine.from_seed_ctr(seed, m, device=device)
         else:
             # the filter params come off the wire: bound the expansion they
             # imply (default 64 GiB, past the 2^23-entry DB's ~63 GiB)
@@ -194,7 +196,7 @@ class Client:
                      "xof_cpu_s": round(xof.get("producer_cpu_s", 0.0), 2),
                      "xof_s": round(xof.get("xof_s", 0.0), 2),
                      "alloc_s": round(xof.get("alloc_s", 0.0), 2)}
-        client = cls(engine, hint_mat_m, filt, seed, prg_mode)
+        client = cls(None, hint_mat_m, filt, engine, seed, prg_mode)
         # user/sys and the fault count say where a slow setup went: sys- or
         # fault-dominated means kernel memory management, not XOF compute
         ru1 = telemetry.thread_rusage()
@@ -230,22 +232,28 @@ class Client:
         m = self._filter.num_fingerprints
         t0 = time.perf_counter()
         secrets = np.stack([self._sample_ternary(LWE_DIMENSION) for _ in range(count)])
-        b_dev = self._engine.matvec_batch_async(secrets)
+        b_dev = None
+        if self._engine is not None:
+            b_dev = self._engine.matvec_batch_async(secrets)
         errors = [self._sample_ternary_u32(m) for _ in range(count)]
         vec_cs = [self._ternary_matvec(secrets[i], self._hint_mat_m) for i in range(count)]
         t_host = time.perf_counter()
         stats: dict = {"host_s": round(t_host - t0, 3)}
-        # split the blocking fetch: residual device compute not hidden
-        # behind the host sampling vs the b-vector d2h readback (the
-        # dominant cost through a slow link: count x 4*k_pad bytes)
-        b_dev.block_until_ready()
-        t_done = time.perf_counter()
-        b_host = np.asarray(b_dev)
-        t_read = time.perf_counter()
-        stats["device_wait_s"] = round(t_done - t_host, 3)
-        stats["readback_s"] = round(t_read - t_done, 3)
-        stats["readback_bytes"] = int(b_host.nbytes)
-        b_batch = b_host[:, :m].astype(np.uint32)
+        if b_dev is not None:
+            # split the blocking fetch: residual device compute not hidden
+            # behind the host sampling vs the b-vector d2h readback (the
+            # dominant cost through a slow link: count x 4*k_pad bytes)
+            b_dev.block_until_ready()
+            t_done = time.perf_counter()
+            b_host = np.asarray(b_dev)
+            t_read = time.perf_counter()
+            stats["device_wait_s"] = round(t_done - t_host, 3)
+            stats["readback_s"] = round(t_read - t_done, 3)
+            stats["readback_bytes"] = int(b_host.nbytes)
+            b_batch = b_host[:, :m].astype(np.uint32)
+        else:
+            b_batch = np.stack([self._ternary_matvec(s, self._pub_mat_a) for s in secrets])
+            stats["host_matvec_s"] = round(time.perf_counter() - t_host, 3)
         entries = [(b_batch[i] + errors[i], vec_cs[i]) for i in range(count)]
         stats["count"] = count
         stats["wall_s"] = round(time.perf_counter() - t0, 3)
@@ -381,6 +389,8 @@ class Client:
     def _query_inline_reserved(self, key: bytes) -> bytes:
         """Inline s.A for a key the caller has already reserved."""
         secret_s = self._sample_ternary(LWE_DIMENSION)
+        if self._engine is None:
+            return self._finalize_query(key, secret_s, self._ternary_matvec(secret_s, self._pub_mat_a))
         # dispatch s.A on the device, overlap the host-side error sampling
         # and unblinding matvec with the device dot + readback
         b_dev = self._engine.matvec_batch_async(secret_s[None, :])
@@ -462,13 +472,16 @@ class Client:
                 codes = np.stack(
                     [self._sample_ternary(LWE_DIMENSION) for _ in fresh_keys]
                 )
-                # dispatch without waiting and hand each key its (1, m_pad)
-                # device row: _finalize_query runs the host-side work (error
-                # sampling, the s . M matvec) BEFORE materialising it,
-                # overlapping the device dot + readback like the inline and
-                # prepare paths do
-                b_dev = self._engine.matvec_batch_async(codes)
-                b_batch = [b_dev[j : j + 1] for j in range(len(fresh_keys))]
+                if self._engine is None:
+                    b_batch = [self._ternary_matvec(c, self._pub_mat_a) for c in codes]
+                else:
+                    # dispatch without waiting and hand each key its (1,
+                    # m_pad) device row: _finalize_query runs the host-side
+                    # work (error sampling, the s . M matvec) BEFORE
+                    # materialising it, overlapping the device dot +
+                    # readback like the inline and prepare paths do
+                    b_dev = self._engine.matvec_batch_async(codes)
+                    b_batch = [b_dev[j : j + 1] for j in range(len(fresh_keys))]
             for i, key in enumerate(keys):
                 try:
                     if i < len(pool_entries):
@@ -506,15 +519,17 @@ class Client:
         the overflow error with no state change; callers retry with a
         fresh secret.
 
-        b_base is an in-flight device result (from matvec_batch_async):
-        all host-only work (error sampling, the s.M
-        matvec, key hashing) runs before it is materialised, so it
-        overlaps the device dot and readback."""
+        b_base is the host engine's (m,) array or an in-flight device
+        result (from matvec_batch_async): all host-only work (error
+        sampling, the s.M matvec, key hashing) runs before it is
+        materialised, so it overlaps the device dot and readback."""
         m = self._filter.num_fingerprints
         error_e = self._sample_ternary_u32(m)
         vec_c = self._ternary_matvec(secret_s, self._hint_mat_m)
 
-        b_host = np.asarray(b_base)[0, :m]  # (1, m_pad)
+        b_host = np.asarray(b_base)
+        if b_host.ndim == 2:  # a device result: (1, m_pad)
+            b_host = b_host[0, :m]
         query_b = b_host.astype(np.uint32) + error_e
         self._add_query_indicator(query_b, key)
 
@@ -585,6 +600,8 @@ class Client:
         server the filter rows of both — a query-privacy break. Pending
         vec_c values never leave the client, so restoring those is safe
         (the worst a stale archive yields is a failed decode)."""
+        if self._seed is None:
+            raise ValueError("client was constructed without a seed; cannot save")
         # one atomic snapshot of the pending dict: a concurrent
         # process_response() popping a key between "list the keys" and
         # "read each entry" must not KeyError the save. Reservation
@@ -683,7 +700,8 @@ class Client:
 
     @property
     def uses_device(self) -> bool:
-        """True: every port client runs s . A in an engine on its device."""
+        """True when s . A runs in an engine on a torch device (every client
+        that setup builds); False for the host engine."""
         return self._engine is not None
 
     @staticmethod

@@ -88,6 +88,10 @@ _CTR_CHUNK_COLS = 1 << 17
 STREAM_BLOCK_ROWS = 16
 # u32 bytes of A per digit2 hint fold, about (see _digit2_block_rows)
 DIGIT2_BLOCK_BYTES = 1 << 30
+# the JAX package's hint buffer height: LWE rows rounded up to its 128-row
+# fold groups. Its padded rows are zero and cut off; the port folds all
+# LWE_DIMENSION rows in one launch and pads none, so only callers read it
+K_PAD = -(-LWE_DIMENSION // 128) * 128  # 1792
 
 
 def _ctr_chunk_cols(m: int, tile_k: int) -> int:
@@ -189,17 +193,22 @@ class Server:
     digit planes on a torch device, or D itself on the host (the numpy
     oracle)."""
 
-    def __init__(self, planes, num_query_cols: int, num_response_cols: int, mesh=None,
-                 backend: str = "torch", layout: str = "packed", mat_elem_bit_len: int | None = None):
+    def __init__(self, backend: str, planes, num_query_cols: int, num_response_cols: int,
+                 mat_elem_bit_len: int, layout: str = "digit2", mesh=None):
+        """The JAX package's constructor, in its order: `backend` "torch"
+        or "numpy" (also "auto", which is "torch"; "jax" raises ValueError);
+        `planes` as `planes` returns them for that backend and layout."""
         # torch/packed: PackedPlanes on one device, or parallel.ShardedPlanes
         # over `mesh`; torch/digit2: ops.respond.DigitPlanes; numpy: the raw
         # uint16 D matrix
+        if layout not in ("packed", "digit2"):
+            raise ValueError(f"unknown layout {layout!r} (packed/digit2)")
         self._planes = planes
-        self._backend = backend
+        self._backend = _resolve_backend(backend)
         self._layout = layout
         self._num_query_cols = num_query_cols
         self._num_response_cols = num_response_cols
-        self.mat_elem_bit_len = planes.mat_elem_bit_len if mat_elem_bit_len is None else mat_elem_bit_len
+        self.mat_elem_bit_len = mat_elem_bit_len
         # measured setup attribution, filled by setup()
         self.setup_stats: dict = {}
         self._mesh = mesh
@@ -215,21 +224,22 @@ class Server:
         seed: bytes,
         db: dict[bytes, bytes],
         arity: int = 3,
-        prg_mode: str = "stream",
-        rng: np.random.Generator | None = None,
-        device="cuda",
-        mat_elem_bit_len: int | None = None,
-        mesh=None,
         backend: str = "auto",
         layout: str = "auto",
+        prg_mode: str = "stream",
         hint_block_rows: int | None = None,
+        rng: np.random.Generator | None = None,
+        mesh=None,
+        mat_elem_bit_len: int | None = None,
+        device="cuda",
     ) -> tuple["Server", bytes, bytes]:
         """Encode `db`, compute the hint M = A . D, return
         (server, hint_bytes, filter_param_bytes) — byte-identical to
         chalametpir_tpu.Server.setup with the same seed, DB, rng and
         prg_mode ("stream", the default, derives A as the reference does;
         "ctr" generates it on the device; clients must use the same), at
-        any backend, layout and hint_block_rows.
+        any backend, layout and hint_block_rows. The parameters are the
+        JAX package's, in its positional order; `device` comes after them.
 
         backend: "torch" (also "auto") runs on `device`; "numpy" is the
         host oracle (D as uint16, uint64 matmuls, `device` is not read and
@@ -316,7 +326,7 @@ class Server:
         hint = (mat_a.astype(np.uint64) @ mat_d.astype(np.uint64)).astype(np.uint32)
         # layout "digit2": what the JAX package's numpy server reports and
         # writes into its archives, though D is held unpacked
-        return cls(mat_d, m, cols, backend="numpy", layout="digit2", mat_elem_bit_len=bit_len), hint, filt
+        return cls("numpy", mat_d, m, cols, bit_len, "digit2"), hint, filt
 
     @classmethod
     def _setup_digit2(cls, seed, db, arity, bit_len, rng, device, prg_mode, hint_block_rows):
@@ -370,7 +380,7 @@ class Server:
             hint_host = hint[:, :cols].cpu().numpy().view(np.uint32)
             phase["drain"] = time.perf_counter() - t0
 
-        server = cls(planes, m, cols, layout="digit2")
+        server = cls("torch", planes, m, cols, bit_len, "digit2")
         server.setup_stats = {
             "upload_bytes": a_bytes + planes.device_bytes,
             "a_upload_bytes": a_bytes,
@@ -432,7 +442,7 @@ class Server:
                 hint = torch.cat([p.cpu() for p in parts]).contiguous().numpy().view(np.uint32)
         phase["hint"] = time.perf_counter() - t0
 
-        server = cls(planes, m, cols, mesh=mesh)
+        server = cls("torch", planes, m, cols, bit_len, "packed", mesh=mesh)
         server.setup_stats = {
             # the planes this process placed on its devices, and in stream
             # mode A's row blocks, which go to the devices inside the hint
@@ -499,7 +509,7 @@ class Server:
             hint_host = hint[:, :cols].cpu().numpy().view(np.uint32)
             phase["drain"] = time.perf_counter() - t0
 
-        server = cls(planes, m, cols)
+        server = cls("torch", planes, m, cols, bit_len, "packed")
         server.setup_stats = {
             "upload_bytes": a_bytes + planes.device_bytes,
             "a_upload_bytes": a_bytes,
@@ -574,7 +584,7 @@ class Server:
                 t0 = time.perf_counter()
                 slab = prg_torch.expand_fp_slab(seed_words, r0, cc, LWE_DIMENSION, device)
                 hint_fold_partial(
-                    slab, lo[r0 : r0 + cc], hi[r0 : r0 + cc] if pack else None, bit_len, cols,
+                    slab.t(), lo[r0 : r0 + cc], hi[r0 : r0 + cc] if pack else None, bit_len, cols,
                     out=hint,
                 )
                 phase["dispatch"] += time.perf_counter() - t0
@@ -583,7 +593,7 @@ class Server:
             phase["drain"] = time.perf_counter() - t0
         telemetry.trace_event("stream_pipeline_phases", **{k: round(v, 2) for k, v in phase.items()})
 
-        server = cls(PackedPlanes(lo, hi, bit_len, m, cols), m, cols)
+        server = cls("torch", PackedPlanes(lo, hi, bit_len, m, cols), m, cols, bit_len, "packed")
         server.setup_stats = {
             "upload_bytes": upload_bytes,
             "upload_s": round(phase["put"] + phase["drain"], 3),
@@ -685,7 +695,7 @@ class Server:
             meta = ast.literal_eval(str(archive["meta"][0]))
             b, m, c = meta["mat_elem_bit_len"], meta["num_query_cols"], meta["num_response_cols"]
             if meta["backend"] == "numpy":
-                return cls(archive["mat_d"], m, c, backend="numpy", layout=meta["layout"], mat_elem_bit_len=b)
+                return cls("numpy", archive["mat_d"], m, c, b, meta["layout"])
             device = resolve_device(device)
             if meta["layout"] == "packed":
                 lo = archive["lo"]
@@ -701,7 +711,7 @@ class Server:
                 planes = respond_ops.digit_planes_from_host(archive["d0"], archive["d1"], b, device)
             else:
                 raise ValueError(f"unknown archive layout {meta['layout']!r}")
-        return cls(planes, m, c, layout=meta["layout"])
+        return cls("torch", planes, m, c, b, meta["layout"])
 
     @property
     def planes(self):

@@ -39,7 +39,7 @@ class BatchDispatcher:
     a 64-query respond."""
 
     def __init__(self, server: Server, max_batch: int = 64,
-                 respond_batch_fn=None, pad_batches: bool = False):
+                 respond_batch_fn=None, pad_batches: bool | None = None):
         self._server = server
         self._max_batch = max_batch
         # pluggable batch hook: multi-process serving wraps respond_batch to
@@ -47,9 +47,10 @@ class BatchDispatcher:
         # (parallel.multihost.leader_respond_batch_fn)
         self._respond_batch = respond_batch_fn or server.respond_batch
         # zero rows up to max_batch; their responses are zero and are never
-        # read. Off by default, in the JAX package on for its jax backend,
-        # whose respond compiles per batch shape
-        self._pad_batches = pad_batches
+        # read. None chooses, as in the JAX package, which pads for its jax
+        # backend, whose respond compiles per batch shape: here no backend
+        # compiles per shape, so None is off
+        self._pad_batches = bool(pad_batches)
         self._queue: asyncio.Queue = asyncio.Queue()
         self._task: asyncio.Task | None = None
         self._busy = False  # a batch is currently being answered

@@ -7,8 +7,10 @@ fingerprint major like the ctr stream, so each slab of fingerprint
 columns is generated by the K3 kernel and recoded in place. The resident
 engine keeps all of A's planes, (4, m_pad, k_pad), built from the seed on
 the device (ctr mode) or from the host XOF's row blocks (stream mode,
-`from_host_rows`: the same planes, so one product serves both modes); the
-streaming engine (ctr mode) keeps none and regenerates A slab by slab for
+`from_host_rows`, and `from_host_matrix` for a whole host A: the same
+planes, so one product serves both modes; "km" planes, the JAX engine's
+row-major layout, are laid out fingerprint-major once, at construction);
+the streaming engine (ctr mode) keeps none and regenerates A slab by slab for
 every batch, so its device memory is O(cols_per_step) at any m. A query
 is four int8 products over the k contraction, recombined mod 2^32 with
 the bias correction 128 * sum(s) per plane:
@@ -30,11 +32,17 @@ import numpy as np
 import torch
 
 from ..errors import AcceleratorError, InvalidDimensionForVector
+from ..models.server import resolve_device
 from ..params import LWE_DIMENSION
 from . import prg_torch
 from .respond_packed import _wrap_i32
 
 _MIN_ROWS = 32  # _int_mm needs more than 16 rows
+# A rows per uploaded block of a host A (the stream-mode client's, and
+# `from_host_matrix`): the recode writes r-byte runs into the
+# fingerprint-major planes, and the host holds two blocks in flight (64 x
+# m x 4 bytes each, 302 MB at 2^20 entries)
+STREAM_A_BLOCK_ROWS = 64
 # device memory kept free beside the planes, for the slab being generated
 # and the per-query temporaries
 _HEADROOM_BYTES = 2 << 30
@@ -94,11 +102,12 @@ def _plane_products(s: torch.Tensor, planes: torch.Tensor, q: int) -> torch.Tens
 
 
 class _QueryEngine:
-    """The s . A surface the base Client calls; an engine sets k and m and
-    implements matvec_batch_async."""
+    """The s . A surface the base Client calls; an engine sets k, m and
+    layout and implements matvec_batch_async."""
 
     k: int
     m: int
+    layout: str
 
     def matvec(self, codes: np.ndarray) -> np.ndarray:
         """(k,) int8 ternary codes {0:0, 1:+1, 2:-1} -> (m,) uint32 s . A."""
@@ -115,12 +124,37 @@ class _QueryEngine:
 
 
 class DeviceQueryEngine(_QueryEngine):
-    """Holds A's byte planes on the device and runs s . A per query batch."""
+    """Holds A's byte planes on the device and runs s . A per query batch.
 
-    def __init__(self, planes: torch.Tensor, k: int, m: int):
+    layout "mk": planes (4, m_pad, k_pad) int8, fingerprint-major, as the
+    constructors here build them. layout "km": planes (4, k_pad, m), the
+    JAX engine's row-major upload, which is relaid fingerprint-major on
+    the planes' device here, once: `torch._int_mm` takes its second
+    operand column-major, so the products have one layout, and `layout`
+    reads "mk" afterwards. Either way the planes are zero-padded to
+    multiples of 8 in m and k (the _int_mm shape rules); `k_pad` is the
+    padded k. The JAX `k_pad` argument is the planes' own k extent (the
+    signs' width there), so it is checked against them, not stored."""
+
+    def __init__(self, planes, k: int, m: int, layout: str = "mk", k_pad: int | None = None):
+        planes = torch.as_tensor(planes)
+        if planes.dtype != torch.int8 or planes.dim() != 3 or planes.shape[0] != 4:
+            raise ValueError(f"planes must be (4, ., .) int8, got {tuple(planes.shape)} {planes.dtype}")
+        if layout == "km":
+            planes = planes.transpose(1, 2)
+        elif layout != "mk":
+            raise ValueError(f"unknown planes layout {layout!r} (mk/km)")
+        if k_pad not in (None, planes.shape[2]) or planes.shape[2] < k or planes.shape[1] < m:
+            raise ValueError(f"{layout} planes {tuple(planes.shape)} do not fit k = {k}, k_pad = {k_pad}, m = {m}")
+        m8, k8 = -(-planes.shape[1] // 8) * 8, -(-planes.shape[2] // 8) * 8
+        if (m8, k8) != tuple(planes.shape[1:]) or not planes.is_contiguous():
+            padded = torch.zeros((4, m8, k8), dtype=torch.int8, device=planes.device)
+            padded[:, : planes.shape[1], : planes.shape[2]] = planes
+            planes = padded
         self._planes = planes  # (4, m_pad, k_pad) int8
         self.k = k
         self.m = m
+        self.layout = "mk"
         self.k_pad = planes.shape[2]
 
     @property
@@ -149,11 +183,12 @@ class DeviceQueryEngine(_QueryEngine):
         return torch.zeros((4, m_pad, k_pad), dtype=torch.int8, device=device)
 
     @classmethod
-    def from_seed_ctr(cls, seed: bytes, m: int, device, cols_per_step: int = 32768) -> "DeviceQueryEngine":
+    def from_seed_ctr(cls, seed: bytes, m: int, cols_per_step: int = 32768,
+                      device="cuda") -> "DeviceQueryEngine":
         """Generate A's planes on `device` (ctr PRG mode): each step
         generates a contiguous ctr slab of `cols_per_step` fingerprint
         columns and recodes it into the planes."""
-        device = torch.device(device)
+        device = resolve_device(device)
         k = LWE_DIMENSION
         planes = cls._empty_planes(
             m, device, "use StreamingQueryEngine, which regenerates A per batch in "
@@ -170,6 +205,27 @@ class DeviceQueryEngine(_QueryEngine):
         return cls(planes, k, m)
 
     @classmethod
+    def streaming_from_seed_ctr(cls, seed: bytes, m: int, cols_per_step: int = 65536,
+                                device="cuda") -> "StreamingQueryEngine":
+        """The ctr-mode engine that never holds A: each batch regenerates
+        it slab by slab (StreamingQueryEngine), O(cols_per_step) device
+        memory at any m."""
+        return StreamingQueryEngine(seed, m, cols_per_step, device)
+
+    @classmethod
+    def from_host_matrix(cls, a_host: np.ndarray, device="cuda") -> "DeviceQueryEngine":
+        """The (LWE_DIMENSION, m) uint32 A from the host (stream mode,
+        interop), uploaded in row blocks of STREAM_A_BLOCK_ROWS and recoded on
+        the device by `from_host_rows`; the host never holds a recoded
+        copy."""
+        a_host = np.asarray(a_host)
+        if a_host.ndim != 2:
+            raise ValueError(f"A must be (k, m), got shape {a_host.shape}")
+        k, m = a_host.shape
+        blocks = ((r0, a_host[r0 : r0 + STREAM_A_BLOCK_ROWS]) for r0 in range(0, k, STREAM_A_BLOCK_ROWS))
+        return cls.from_host_rows(blocks, m, device)
+
+    @classmethod
     def from_host_rows(cls, row_blocks, m: int, device, stats: dict | None = None) -> "DeviceQueryEngine":
         """Build A's planes on `device` from stream-mode A, which the host
         XOF emits row-major: `row_blocks` yields (r0, (r, m) uint32 block)
@@ -180,7 +236,7 @@ class DeviceQueryEngine(_QueryEngine):
         with `prg.prefetch_iter` and the XOF overlaps upload and recode.
         `stats` (optional) receives alloc_s, the wall seconds of the plane
         buffer's allocation."""
-        device = torch.device(device)
+        device = resolve_device(device)
         k = LWE_DIMENSION
         t0 = time.perf_counter()
         planes = cls._empty_planes(m, device, "stream-mode A has no streaming engine")
@@ -213,13 +269,14 @@ class StreamingQueryEngine(_QueryEngine):
     (K3 kernel), recodes each slab to byte planes and folds its products
     into the output. Nothing of A outlives a slab. Same matvec surface."""
 
-    def __init__(self, seed: bytes, m: int, device, cols_per_step: int = 65536):
+    def __init__(self, seed: bytes, m: int, cols_per_step: int = 65536, device="cuda"):
         if cols_per_step <= 0 or cols_per_step % 8:
             raise ValueError("cols_per_step must be a positive multiple of 8")
         self.k = LWE_DIMENSION
         self.k_pad = -(-self.k // 8) * 8
         self.m = m
-        self._device = torch.device(device)
+        self.layout = "streaming"
+        self._device = resolve_device(device)
         self._seed_words = prg_torch.seed_to_words(seed)
         self.cols_per_step = cols_per_step
 

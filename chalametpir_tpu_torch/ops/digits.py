@@ -23,11 +23,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .respond_packed import _wrap_i32
-
 NUM_U32_DIGITS = 4
 NUM_DB_DIGITS = 2
 DIGIT_ROW_ALIGN = 32  # digit rows are padded to a multiple of this
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values -> int32 tensor holding their low 32 bits."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def recode_u32_np(x: np.ndarray) -> np.ndarray:

@@ -89,9 +89,17 @@ def ctr_blocks(seed_words, block0: int, nblocks: int, device) -> torch.Tensor:
     return out
 
 
-def rows_from_blocks(seed_words, block0: int, offset: int, nrows: int, cols: int, device):
+def rows_from_blocks(seed_words, blk0_words, offset: int, nrows: int, cols: int, device="cuda"):
     """(nrows, cols) int32 slab of the ctr stream starting `offset` u32
-    words into ctr block `block0`."""
+    words into a ctr block: `blk0_words` is the block's index, an int (as
+    `fp_block_start` gives it) or the JAX package's two u32 words (lo,
+    hi)."""
+    if isinstance(blk0_words, (int, np.integer)):
+        block0 = int(blk0_words)
+    else:
+        lo, hi = (int(w) for w in np.asarray(blk0_words, dtype=np.uint64).reshape(2))
+        block0 = lo | hi << 32
+    offset = int(offset)
     nelems = nrows * cols
     # the JAX package's fixed block count for any alignment
     nblocks = nelems * 4 // RATE + 2

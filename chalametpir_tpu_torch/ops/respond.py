@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .digits import db_digit_planes_np
+from .digits import NUM_U32_DIGITS, db_digit_planes_np  # noqa: F401  (NUM_U32_DIGITS re-exported, as in the JAX package)
 from .matmul_u32 import PLANE_ALIGN, _matmul_digits, _round_up
 
 # rows per host recode of build_digit_planes: bounds the uint32 temporaries

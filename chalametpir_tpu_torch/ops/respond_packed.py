@@ -23,6 +23,7 @@ import torch
 
 from .. import kernels
 from ..native import engine
+from .digits import NUM_U32_DIGITS, _wrap_i32  # noqa: F401  (NUM_U32_DIGITS re-exported, as in the JAX package)
 from .packed import hi_bits, hi_pack_factor  # noqa: F401  (re-exported: their old home)
 
 LANE = 128  # c_pad is a multiple of this (the JAX package's lane width)
@@ -86,12 +87,6 @@ def build_packed_db(mat: np.ndarray, mat_elem_bit_len: int, device,
         torch.from_numpy(hi).to(device) if hi is not None else None,
         mat_elem_bit_len, m, c,
     )
-
-
-def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values -> int32 tensor holding their low 32 bits."""
-    x = x & 0xFFFFFFFF
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def hi_fields(hi: torch.Tensor, pack: int) -> torch.Tensor:
@@ -174,18 +169,21 @@ def respond_packed_mma_arith(queries, lo, hi, mat_elem_bit_len: int, num_cols: i
     return _wrap_i32(acc)
 
 
-def respond_packed_core(queries, lo, hi, mat_elem_bit_len: int, num_cols: int, out=None):
+def respond_packed_core(queries_u32, lo, hi, mat_elem_bit_len: int, num_cols: int, out=None):
     """(Q, m) int32 queries x planes -> (Q, num_cols) int32 u32 bits.
 
     With `out` ((Q, >= c_pad) int32), the product is ADDED into out and
     out is returned: the hint fold accumulates every chunk into one
     buffer. Runs the kernel for planes on CUDA, the plain version for
-    planes on the CPU, and raises for any other device."""
+    planes on the CPU, and raises for any other device. The JAX
+    package's `tile_k` and `interpret` are not taken: the kernel picks its
+    own geometry (kernels.choose_regime), and the CPU runs the plain
+    version."""
     device = lo.device
-    if queries.device != device:
-        raise ValueError(f"queries on {queries.device}, planes on {device}")
+    if queries_u32.device != device:
+        raise ValueError(f"queries on {queries_u32.device}, planes on {device}")
     if device.type == "cpu":
-        res = respond_packed_ref(queries, lo, hi, mat_elem_bit_len, num_cols)
+        res = respond_packed_ref(queries_u32, lo, hi, mat_elem_bit_len, num_cols)
         if out is None:
             return res
         c = num_cols
@@ -196,25 +194,27 @@ def respond_packed_core(queries, lo, hi, mat_elem_bit_len: int, num_cols: int, o
     pack, _, _ = pack_geometry(mat_elem_bit_len, lo.shape[1])
     fresh = out is None
     if fresh:
-        out = torch.zeros((queries.shape[0], lo.shape[1]), dtype=torch.int32, device=device)
-    kernels.respond_packed(queries, lo, hi, pack, out)
+        out = torch.zeros((queries_u32.shape[0], lo.shape[1]), dtype=torch.int32, device=device)
+    kernels.respond_packed(queries_u32, lo, hi, pack, out)
     return out[:, :num_cols] if fresh else out
 
 
-def respond_batch_packed(queries, db: PackedPlanes) -> torch.Tensor:
+def respond_batch_packed(queries_u32, db: PackedPlanes) -> torch.Tensor:
     """(Q, m) int32 u32-bit queries x PackedPlanes -> (Q, c) int32 bits."""
-    if queries.shape[1] != db.num_rows:
-        raise ValueError(f"query length {queries.shape[1]} != DB rows {db.num_rows}")
-    return respond_packed_core(queries, db.lo, db.hi, db.mat_elem_bit_len, db.num_cols)
+    if queries_u32.shape[1] != db.num_rows:
+        raise ValueError(f"query length {queries_u32.shape[1]} != DB rows {db.num_rows}")
+    return respond_packed_core(queries_u32, db.lo, db.hi, db.mat_elem_bit_len, db.num_cols)
 
 
-def hint_fold_partial(a_slab, lo, hi, mat_elem_bit_len: int, num_cols: int, out=None):
+def hint_fold_partial(g, lo, hi, mat_elem_bit_len: int, num_cols: int, out=None):
     """One hint chunk fold A[:, chunk] . D[chunk] over packed planes.
 
-    a_slab: (cc, k) int32, A's fingerprint columns of the chunk as the ctr
-    generator emits them (a_slab[j] = A[:, r0 + j]); lo/hi: the planes of
-    the same cc DB rows. Returns (k, num_cols), or accumulates into `out`.
-    All k rows fold in one launch, read fingerprint-major through a
-    transposed view — the JAX package's 128-row groups and explicit
-    transpose only fit the TPU's VMEM."""
-    return respond_packed_core(a_slab.t(), lo, hi, mat_elem_bit_len, num_cols, out=out)
+    g: (k, cc) int32, A's columns of the chunk with LWE rows as rows, as
+    in the JAX package (any k: its zero-padded 1792 rows give zero rows of
+    the result). The ctr generator emits the chunk fingerprint-major, (cc,
+    k): pass its transposed view, `slab.t()`, which the kernel reads as
+    it lies, with no copy. lo/hi: the planes of the same cc DB rows.
+    Returns (k, num_cols), or accumulates into `out`. All k rows fold in
+    one launch: the JAX package's `rgroup` row groups (and its `tile_k`
+    and `interpret`) only fit the TPU's VMEM and are not taken."""
+    return respond_packed_core(g, lo, hi, mat_elem_bit_len, num_cols, out=out)

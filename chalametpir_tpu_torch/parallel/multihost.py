@@ -39,7 +39,7 @@ import torch.distributed as dist
 
 from ..core import matrix_io
 from ..models.server import resolve_device
-from .sharding import Mesh, mesh_shape
+from .sharding import Mesh, make_mesh, mesh_shape  # noqa: F401  (make_mesh re-exported, as in the JAX package)
 
 
 def _process_count() -> int:

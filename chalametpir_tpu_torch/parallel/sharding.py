@@ -40,6 +40,7 @@ from ..errors import AcceleratorError
 from ..models.server import resolve_device
 from ..native import engine
 from ..ops import prg_torch
+from ..ops.digits import NUM_U32_DIGITS  # noqa: F401  (re-exported, as in the JAX package)
 from ..ops.matmul_u32 import _matmul_digits, pad_plane
 from ..ops.respond_packed import (
     LANE,
@@ -319,7 +320,7 @@ def sharded_hint_ctr_packed(mesh: Mesh, db: ShardedPlanes, seed: bytes) -> np.nd
         lo, hi = db.shard(s, device)
         for r0 in range(0, db.m_local, cc):
             slab = prg_torch.expand_fp_slab(seed_words, s * db.m_local + r0, cc, LWE_DIMENSION, device)
-            hint_fold_partial(slab, lo[r0 : r0 + cc], hi[r0 : r0 + cc] if hi is not None else None,
+            hint_fold_partial(slab.t(), lo[r0 : r0 + cc], hi[r0 : r0 + cc] if hi is not None else None,
                               db.mat_elem_bit_len, db.num_cols, out=partials[device])
     hint = _sum_partials(mesh, partials)[:, : db.num_cols]
     return hint.cpu().contiguous().numpy().view(np.uint32)

@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from csrc/, checks each against its plain
 PyTorch version bit for bit (phase 3: the respond kernel's scan and
 tensor-core regimes at every hi-plane pack, Q from 1 to 1774, both
 regimes on both sides of their crossover, out accumulated twice, the
-hint fold's transposed view), then drives six paths, each with the
+hint fold's transposed view), then drives seven paths, each with the
 launch counts set to 0 just before it and read just after:
 
 - phases 4-5, the ctr-mode serving path through the public entry points
@@ -56,7 +56,15 @@ launch counts set to 0 just before it and read just after:
   same Keccak work on one core, with nothing overlapped, and transpose
   8.4 GB after it), hint and responses equal to phase 9b's packed server
   byte for byte, save and load, and the digit2 respond timed beside the
-  packed kernel (12b).
+  packed kernel (12b);
+- phase 13, the JAX package's call surface: 2^18 entries, arity 3, ctr,
+  through Server.setup in the JAX positional order (seed, db, 3, "auto",
+  "packed", "ctr"), the same bytes as the keyword call; four client
+  engines built as a JAX caller builds them (from_seed_ctr(seed, m,
+  32768), from_host_matrix(A), "km" planes through the constructor,
+  streaming_from_seed_ctr(seed, m)), the same s . A bit for bit at Q = 1
+  and 64, each timed; and the JAX client's host engine, Client(pub_mat_a,
+  hint, filt, ...), round-tripping 8 keys.
 
 Imports nothing of jax or of the JAX package. Prints progress lines and
 each phase's wall time, then one JSON line with each kernel's launches on
@@ -91,6 +99,7 @@ NUM_ENTRIES, VALUE_LEN, ARITY = 1 << 20, 1024, 3
 STREAMING_ENTRIES = 1 << 21  # past the resident client planes' budget
 STREAM_CHECK_ENTRIES = 1 << 14  # small enough for the plain versions on the host
 ORACLE_ENTRIES = 1 << 12  # small enough for the numpy oracle's uint64 matmul on the host
+SURFACE_ENTRIES = 1 << 18  # A as host u32 (2.15 GB) for the host engines
 DEMO_DEADLINE_S = 180  # each form of the two-process demo
 RESPOND_PALLAS = ("chalametpir_tpu/ops/respond_pallas.py:184 (K1, `_kernel_with_hi`), "
                   "chalametpir_tpu/ops/respond_pallas.py:211 (K2, `_kernel_lo_only`)")
@@ -375,7 +384,7 @@ def main(argv=None) -> int:
         # the hint fold's strided, transposed view of an A slab
         slab = torch.from_numpy(
             rng.integers(0, 1 << 32, size=(m, 1774), dtype=np.uint32).view(np.int32)).to(dev)
-        errors.check(regime(1774, b), rp.hint_fold_partial(slab, lo, hi, b, c),
+        errors.check(regime(1774, b), rp.hint_fold_partial(slab.t(), lo, hi, b, c),
                      rp.respond_packed_ref(slab.t(), lo, hi, b, c), f"b={b} fold of a 1774-wide slab's transpose")
         del db_planes, lo, hi, slab, queries
     phase_done("phase 3")
@@ -489,7 +498,7 @@ def main(argv=None) -> int:
         f"bound {bound['ctr_keccak'][0]:.3f} ms ({bound['ctr_keccak'][1]})")
     a_slab = prg_torch.expand_fp_slab(words, 0, cc, 1774, dev)
     lo_c, hi_c = planes.lo[:cc], planes.hi[:cc] if planes.hi is not None else None
-    fold = lambda: rp.hint_fold_partial(a_slab, lo_c, hi_c, b, ncols)  # noqa: E731
+    fold = lambda: rp.hint_fold_partial(a_slab.t(), lo_c, hi_c, b, ncols)  # noqa: E731
     fold_ref = lambda: rp.respond_packed_ref(a_slab.t(), lo_c, hi_c, b, ncols)  # noqa: E731
     errors.check(regime(1774, b), fold(), fold_ref(), f"hint fold 1774 x {cc} x {ncols}")
     k, p = cuda_ms(fold, 3), cuda_ms(fold_ref, 2)
@@ -639,8 +648,8 @@ def main(argv=None) -> int:
         f"{server.planes.device_bytes} B")
     # the resident engine at the same m, which the rule turned down
     t0 = time.perf_counter()
-    resident = Client(DeviceQueryEngine.from_seed_ctr(pir_seed, m, dev), client._hint_mat_m,
-                      client._filter, pir_seed, "ctr")
+    resident = Client(None, client._hint_mat_m, client._filter,
+                      DeviceQueryEngine.from_seed_ctr(pir_seed, m, device=dev), pir_seed, "ctr")
     torch.cuda.synchronize()
     resident_s = time.perf_counter() - t0
     resident_query_ms = []
@@ -879,7 +888,7 @@ def main(argv=None) -> int:
     a_slab = prg_torch.expand_fp_slab(pir_words, col0, cc, LWE_DIMENSION, dev)
     lo_s, hi_s = planes.shard(1, dev0)
     lo_c, hi_c = lo_s[cc : 2 * cc], hi_s[cc : 2 * cc] if hi_s is not None else None
-    fold = lambda: rp.hint_fold_partial(a_slab, lo_c, hi_c, b, ncols)  # noqa: E731
+    fold = lambda: rp.hint_fold_partial(a_slab.t(), lo_c, hi_c, b, ncols)  # noqa: E731
     fold_ref = lambda: rp.respond_packed_ref(a_slab.t(), lo_c, hi_c, b, ncols)  # noqa: E731
     errors.check(regime(LWE_DIMENSION, b), fold(), fold_ref(), f"sharded hint fold {LWE_DIMENSION} x {cc} x {ncols}")
     k, p = cuda_ms(fold, 3), cuda_ms(fold_ref, 2)
@@ -1102,6 +1111,109 @@ def main(argv=None) -> int:
     del db20, server, planes, packed, interop, queries, digit_fn, packed_fn
     torch.cuda.empty_cache()
     phase_done("phase 12b")
+
+    # -- phase 13: the JAX package's call surface on the card ------------------
+    from chalametpir_tpu_torch import BinaryFuseFilter
+
+    n = SURFACE_ENTRIES
+    db = build_db(n, VALUE_LEN, args.seed + 4)
+    pir_seed = rng.bytes(32)
+    keys = list(db)
+    probe = [keys[int(i)] for i in rng.choice(n, size=8, replace=False)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    # Server.setup in the JAX package's positional order, beside the keyword call
+    t0 = time.perf_counter()
+    server, hint, fparams = Server.setup(pir_seed, db, 3, "auto", "packed", "ctr",
+                                         rng=np.random.default_rng(args.seed))
+    setup_s = time.perf_counter() - t0
+    kw_server, kw_hint, kw_fparams = Server.setup(pir_seed, db, arity=3, backend="auto", layout="packed",
+                                                  prg_mode="ctr", rng=np.random.default_rng(args.seed), device=dev)
+    if (hint, fparams) != (kw_hint, kw_fparams):
+        raise AssertionError("Server.setup's positional and keyword calls give different hint or filter bytes")
+    if (server.backend, server.layout, server.device.type) != ("torch", "packed", dev.type):
+        raise AssertionError(f"the positional setup built {server.backend}/{server.layout} on {server.device}")
+    m = server.num_query_cols
+    qmat = rng.integers(0, 1 << 32, size=(64, m), dtype=np.uint32)
+    if not np.array_equal(server.respond_batch(qmat), kw_server.respond_batch(qmat)):
+        raise AssertionError("the positional and keyword servers' respond_batch differ")
+    if any(not np.array_equal(server.respond_batch(qmat[i : i + 1]), kw_server.respond_batch(qmat[i : i + 1]))
+           for i in range(16)):
+        raise AssertionError("the positional and keyword servers' single responses differ")
+    del kw_server
+    log(f"  {n} entries x {VALUE_LEN} B, arity 3, ctr: Server.setup(seed, db, 3, \"auto\", \"packed\", \"ctr\") "
+        f"in {setup_s:.2f} s, m={m} b={server.mat_elem_bit_len}: hint, filter, 16 single and 64 batched "
+        f"responses equal to the keyword call's")
+    # A on the host, by the port's ctr expansion, for two engines and the host client
+    t0 = time.perf_counter()
+    a_host = prg.expand_seed(LWE_DIMENSION, m, pir_seed, mode="ctr")
+    log(f"  host ctr expansion of A ({a_host.nbytes} B) {time.perf_counter() - t0:.2f} s")
+
+    def km_engine():
+        """"km" planes (4, k, m) as the JAX engine's from_host_matrix
+        builds them, made on the card, then the JAX constructor."""
+        a_dev = torch.from_numpy(a_host.view(np.int32)).to(dev)
+        planes_km = torch.stack([(((a_dev >> (8 * j)) & 255) - 128).to(torch.int8) for j in range(4)])
+        del a_dev
+        return DeviceQueryEngine(planes_km, LWE_DIMENSION, m, "km")
+
+    constructors = {
+        "from_seed_ctr(seed, m, 32768)": lambda: DeviceQueryEngine.from_seed_ctr(pir_seed, m, 32768),
+        "from_host_matrix(A)": lambda: DeviceQueryEngine.from_host_matrix(a_host),
+        "DeviceQueryEngine(planes, k, m, \"km\")": km_engine,
+        "streaming_from_seed_ctr(seed, m)": lambda: DeviceQueryEngine.streaming_from_seed_ctr(pir_seed, m),
+    }
+    codes = {q: rng.integers(0, 3, size=(q, LWE_DIMENSION)).astype(np.int8) for q in (1, 64)}
+    want = {}
+    for name, build in constructors.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if eng.device.type != dev.type:
+            raise AssertionError(f"{name} is not on the card")
+        times = []
+        for q, c in codes.items():
+            got = eng.matvec_batch(c)
+            if not np.array_equal(got, want.setdefault(q, got)):
+                raise AssertionError(f"{name}: s.A at Q={q} differs from {next(iter(constructors))}")
+            times.append(cuda_ms(lambda: eng.matvec_batch_async(c), 5))
+        log(f"  {name}: built in {build_s:.2f} s, layout {eng.layout}, {eng.device_bytes} B on the card; "
+            f"s.A equal at Q=1 and 64, CUDA-event median {times[0]:.3f} ms (Q=1), {times[1]:.3f} ms (Q=64); {smi}")
+        del eng
+        torch.cuda.empty_cache()
+    if not np.array_equal(want[1][0], engine.ternary_matvec(codes[1][0], a_host)):
+        raise AssertionError("the engines' s.A differs from the native host matvec over the host A")
+    # the JAX client's host engine: s.A by the native matvec over the host A
+    client = Client(a_host, matrix_io.matrix_from_bytes(hint), BinaryFuseFilter.from_bytes(fparams),
+                    seed=pir_seed, prg_mode="ctr")
+    if client.uses_device:
+        raise AssertionError("a client built from pub_mat_a runs on a device engine")
+    query_ms = []
+    for key in probe[:4]:
+        t0 = time.perf_counter()
+        qb = query(client, key)
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+        if client.process_response(key, server.respond(qb)) != db[key]:
+            raise AssertionError("the host client decoded a wrong value")
+    client.prepare_queries(4)
+    if "host_matvec_s" not in client.prepare_stats:
+        raise AssertionError(f"the host client's prepare_stats lack host_matvec_s: {client.prepare_stats}")
+    for key, qb in zip(probe[4:], client.query_batch(probe[4:])):
+        if client.process_response(key, server.respond(qb)) != db[key]:
+            raise AssertionError("the host client's pooled query decoded a wrong value")
+    torch.cuda.synchronize()
+    surface_launches = require_launched(("ctr_keccak", "respond_packed_scan", "respond_packed_mma"),
+                                        "JAX-surface path")
+    for name in ("ctr_keccak", "respond_packed_scan", "respond_packed_mma"):
+        launches[name] += surface_launches[name]
+    log(f"  Client(pub_mat_a, hint, filt, seed=seed, prg_mode=\"ctr\"): 8 keys round-tripped (4 inline, query() "
+        f"wall {', '.join(f'{t:.0f}' for t in query_ms)} ms; 4 from the pool, prepare_stats {client.prepare_stats}); "
+        f"launches {surface_launches}")
+    del db, server, client, a_host, want
+    torch.cuda.empty_cache()
+    phase_done("phase 13")
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -39,7 +39,7 @@ def test_matvec_batch_matches_jax_and_native(q, rng):
     seed = rng.bytes(32)
     codes = rng.integers(0, 3, size=(q, LWE_DIMENSION)).astype(np.int8)
     # a small generation step: the result cannot depend on it
-    eng = DeviceQueryEngine.from_seed_ctr(seed, m, "cpu", cols_per_step=128)
+    eng = DeviceQueryEngine.from_seed_ctr(seed, m, device="cpu", cols_per_step=128)
     got = eng.matvec_batch(codes)
     assert got.shape == (q, m) and got.dtype == np.uint32
     assert np.array_equal(got, JaxEngine.from_seed_ctr(seed, m).matvec_batch(codes))
@@ -52,7 +52,7 @@ def test_async_result_follows_the_engine_contract(rng):
     """The base Client blocks, slices rows and np.asarray's the handle."""
     m = 200
     seed = rng.bytes(32)
-    eng = DeviceQueryEngine.from_seed_ctr(seed, m, "cpu", cols_per_step=64)
+    eng = DeviceQueryEngine.from_seed_ctr(seed, m, device="cpu", cols_per_step=64)
     codes = rng.integers(0, 3, size=(4, LWE_DIMENSION)).astype(np.int8)
     res = eng.matvec_batch_async(codes).block_until_ready()
     full = np.asarray(res)
@@ -63,7 +63,7 @@ def test_async_result_follows_the_engine_contract(rng):
 def test_bad_codes_shape_raises(rng):
     from chalametpir_tpu_torch.errors import InvalidDimensionForVector
 
-    eng = DeviceQueryEngine.from_seed_ctr(rng.bytes(32), 50, "cpu", cols_per_step=64)
+    eng = DeviceQueryEngine.from_seed_ctr(rng.bytes(32), 50, device="cpu", cols_per_step=64)
     with pytest.raises(InvalidDimensionForVector):
         eng.matvec_batch(np.zeros((2, LWE_DIMENSION - 1), np.int8))
 
@@ -74,7 +74,7 @@ def test_device_engine_on_cuda_matches_native(cuda):
     m = 5000
     seed = g.bytes(32)
     codes = g.integers(0, 3, size=(3, LWE_DIMENSION)).astype(np.int8)
-    eng = DeviceQueryEngine.from_seed_ctr(seed, m, cuda, cols_per_step=2048)
+    eng = DeviceQueryEngine.from_seed_ctr(seed, m, device=cuda, cols_per_step=2048)
     assert eng.device.type == "cuda"
     a = prg.expand_seed(LWE_DIMENSION, m, seed, mode="ctr")
     assert np.array_equal(eng.matvec_batch(codes), _host_matvecs(a, codes))

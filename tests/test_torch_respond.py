@@ -100,14 +100,14 @@ def test_hint_fold_partial_matches_jax(b, rng):
         np.ascontiguousarray(a_slab.T), jdb.lo, jdb.hi, b, C, 256, 128, True
     ))
     db = rp.build_packed_db(mat, b, "cpu")
-    got = rp.hint_fold_partial(_i32(a_slab), db.lo[:cc], db.hi[:cc] if db.hi is not None else None, b, C)
+    got = rp.hint_fold_partial(_i32(a_slab).t(), db.lo[:cc], db.hi[:cc] if db.hi is not None else None, b, C)
     assert np.array_equal(_u32(got), want)
     assert np.array_equal(_u32(got), _oracle(a_slab.T, mat))
 
     # with `out`, chunks accumulate mod 2^32 into one buffer
     out = torch.zeros((k_pad, db.lo.shape[1]), dtype=torch.int32)
     for _ in range(2):
-        rp.hint_fold_partial(_i32(a_slab), db.lo[:cc], db.hi[:cc] if db.hi is not None else None, b, C, out=out)
+        rp.hint_fold_partial(_i32(a_slab).t(), db.lo[:cc], db.hi[:cc] if db.hi is not None else None, b, C, out=out)
     assert np.array_equal(_u32(out[:, :C]), want * np.uint32(2))
 
 
@@ -240,5 +240,5 @@ def test_hint_fold_kernel_matches_plain(b, cuda):
     db = rp.build_packed_db(mat, b, cuda)
     out = torch.zeros((k, db.lo.shape[1]), dtype=torch.int32, device=cuda)
     for _ in range(2):
-        rp.hint_fold_partial(_i32(a_slab, cuda), db.lo, db.hi, b, C, out=out)
+        rp.hint_fold_partial(_i32(a_slab, cuda).t(), db.lo, db.hi, b, C, out=out)
     assert np.array_equal(_u32(out[:, :C]), _oracle(a_slab.T, mat) * np.uint32(2))

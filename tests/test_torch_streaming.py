@@ -49,18 +49,18 @@ def test_streaming_matches_jax_streaming_and_resident(m, step, q, rng):
 
     seed = rng.bytes(32)
     codes = _codes(rng, q)
-    eng = StreamingQueryEngine(seed, m, "cpu", cols_per_step=step)
+    eng = StreamingQueryEngine(seed, m, device="cpu", cols_per_step=step)
     got = eng.matvec_batch(codes)
     assert got.shape == (q, m) and got.dtype == np.uint32
     assert np.array_equal(got, JaxStreaming(seed, m, cols_per_step=step).matvec_batch(codes))
-    assert np.array_equal(got, DeviceQueryEngine.from_seed_ctr(seed, m, "cpu").matvec_batch(codes))
+    assert np.array_equal(got, DeviceQueryEngine.from_seed_ctr(seed, m, device="cpu").matvec_batch(codes))
     assert np.array_equal(eng.matvec(codes[0]), got[0])
 
 
 def test_streaming_async_result_follows_the_engine_contract(rng):
     """The base Client blocks, slices rows and np.asarray's the handle."""
     m = 203
-    eng = StreamingQueryEngine(rng.bytes(32), m, "cpu", cols_per_step=64)
+    eng = StreamingQueryEngine(rng.bytes(32), m, device="cpu", cols_per_step=64)
     assert eng.device_bytes == 0
     codes = _codes(rng, 4)
     res = eng.matvec_batch_async(codes).block_until_ready()
@@ -70,14 +70,14 @@ def test_streaming_async_result_follows_the_engine_contract(rng):
 
 
 def test_streaming_rejects_bad_shapes(rng):
-    eng = StreamingQueryEngine(rng.bytes(32), 50, "cpu", cols_per_step=64)
+    eng = StreamingQueryEngine(rng.bytes(32), 50, device="cpu", cols_per_step=64)
     with pytest.raises(InvalidDimensionForVector):
         eng.matvec_batch(np.zeros((2, LWE_DIMENSION - 1), np.int8))
     with pytest.raises(InvalidDimensionForVector):
         eng.matvec(np.zeros(LWE_DIMENSION + 1, np.int8))
     for step in (0, 100):
         with pytest.raises(ValueError):
-            StreamingQueryEngine(rng.bytes(32), 50, "cpu", cols_per_step=step)
+            StreamingQueryEngine(rng.bytes(32), 50, device="cpu", cols_per_step=step)
 
 
 def _deterministic_sampler(monkeypatch, seed: int) -> None:
@@ -173,12 +173,12 @@ def test_streaming_engine_on_cuda_matches_native_and_resident(cuda):
     seed = g.bytes(32)
     codes = _codes(g, 5)
     before = kernels.LAUNCHES["ctr_keccak"]
-    eng = StreamingQueryEngine(seed, m, cuda, cols_per_step=4096)
+    eng = StreamingQueryEngine(seed, m, device=cuda, cols_per_step=4096)
     got = eng.matvec_batch(codes)
     assert kernels.LAUNCHES["ctr_keccak"] == before + 5  # one K3 launch per slab
     a = prg.expand_seed(LWE_DIMENSION, m, seed, mode="ctr")
     assert np.array_equal(got, np.stack([native.ternary_matvec(c, a) for c in codes]))
-    assert np.array_equal(got, DeviceQueryEngine.from_seed_ctr(seed, m, cuda).matvec_batch(codes))
+    assert np.array_equal(got, DeviceQueryEngine.from_seed_ctr(seed, m, device=cuda).matvec_batch(codes))
 
 
 @pytest.mark.cuda
@@ -186,4 +186,4 @@ def test_resident_engine_that_does_not_fit_raises(cuda):
     """Asked for explicitly, resident planes past the free device memory
     raise (4 * 2^25 * 1776 B is more than any single card holds)."""
     with pytest.raises(AcceleratorError, match="StreamingQueryEngine"):
-        DeviceQueryEngine.from_seed_ctr(bytes(32), 1 << 25, cuda)
+        DeviceQueryEngine.from_seed_ctr(bytes(32), 1 << 25, device=cuda)
