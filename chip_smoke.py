@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from csrc/, checks each against its plain
 PyTorch version bit for bit (phase 3: the respond kernel's scan and
 tensor-core regimes at every hi-plane pack, Q from 1 to 1774, both
 regimes on both sides of their crossover, out accumulated twice, the
-hint fold's transposed view), then drives seven paths, each with the
+hint fold's transposed view), then drives eight paths, each with the
 launch counts set to 0 just before it and read just after:
 
 - phases 4-5, the ctr-mode serving path through the public entry points
@@ -64,7 +64,12 @@ launch counts set to 0 just before it and read just after:
   32768), from_host_matrix(A), "km" planes through the constructor,
   streaming_from_seed_ctr(seed, m)), the same s . A bit for bit at Q = 1
   and 64, each timed; and the JAX client's host engine, Client(pub_mat_a,
-  hint, filt, ...), round-tripping 8 keys.
+  hint, filt, ...), round-tripping 8 keys;
+- phase 14, the bench path: `bench_torch.py --cell ctr-2p20-a3 --seed 9`
+  in a process of its own (2^20 entries, ctr, its full traffic: setup,
+  client phases, 200 single and 20 batched responds, save and restart),
+  which must end correct, with the ctr Keccak kernel and both respond
+  regimes in its launch record; its last line is printed here.
 
 Imports nothing of jax or of the JAX package. Prints progress lines and
 each phase's wall time, then one JSON line with each kernel's launches on
@@ -111,15 +116,8 @@ SOURCES = {
                        "scripts/diag_scan_qdlayout.py:57 (K4), scripts/diag_scan_qdsweep.py:81 (K5), "
                        "scripts/diag_scan_qdsweep.py:97 (K6)"),
 }
-
-
-# Keccak-p[1600,12] in 32-bit integer operations, counted from the round of
-# csrc/ctr_keccak.cu with each 3-input logic function one LOP3 per 32-bit
-# half: theta 20 (column parities) + 10 (5 rotations by 1, two funnel
-# shifts each) + 50 (folding both into the 25 lanes), rho-pi 48 (24
-# rotations), chi 50, iota 2; 12 rounds
-KECCAK_OPS = 12 * (20 + 10 + 50 + 48 + 50 + 2)
-INT32_LANES_PER_SM = 64  # Hopper's SM (NVIDIA's H100 white paper)
+BENCH_CELL, BENCH_SEED = "ctr-2p20-a3", 9  # phase 14: bench_torch.py's headline cell
+BENCH_DEADLINE_S = 300
 
 
 def log(msg: str) -> None:
@@ -131,19 +129,11 @@ def run(cmd: list[str]) -> str:
 
 
 def build_db(n: int, value_len: int, seed: int) -> dict[bytes, bytes]:
-    """n random 32-byte keys -> value_len random bytes, from `seed`."""
-    rng = np.random.default_rng(seed)
-    vals = np.empty(n * value_len, np.uint8)
-    step = 64 << 20
-    for i in range(0, vals.size, step):
-        chunk = min(step, vals.size - i)
-        vals[i : i + chunk] = np.frombuffer(rng.bytes(chunk), np.uint8)
-    keys = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
-    # void views, not S: S-dtype tolist() strips trailing NUL bytes
-    db = dict(zip(keys.view("V32").ravel().tolist(), vals.view(f"V{value_len}").tolist()))
-    while len(db) < n:  # 32-byte key collisions are vanishingly unlikely
-        db[rng.integers(0, 256, size=32, dtype=np.uint8).tobytes()] = bytes(value_len)
-    return db
+    """n random 32-byte keys -> value_len random bytes, from `seed`
+    (bench_torch.build_db: the bench's DB)."""
+    from bench_torch import build_db as bench_build_db
+
+    return bench_build_db(n, value_len, np.random.default_rng(seed))
 
 
 def query(client, key: bytes) -> bytes:
@@ -167,22 +157,6 @@ def require_launched(names, what: str) -> dict:
     if missing:
         raise AssertionError(f"{', '.join(missing)} never ran on the {what}: {launches}")
     return launches
-
-
-def keccak_bound_ms(nblocks: int) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") of nblocks ctr blocks: the
-    168-byte outputs written once at the card's memory rate, or KECCAK_OPS
-    per block at the card's int32 rate (SMs x 64 lanes x its maximum SM
-    clock, read from nvidia-smi)."""
-    import torch
-
-    from chalametpir_tpu_torch.diag.respond_regimes import CARD_BYTES_PER_S
-
-    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]))
-    rate = torch.cuda.get_device_properties(0).multi_processor_count * INT32_LANES_PER_SM * mhz * 1e6
-    by_bytes = nblocks * 168 / CARD_BYTES_PER_S * 1e3
-    by_ops = nblocks * KECCAK_OPS / rate * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def digits_bound_ms(row: dict) -> tuple[float, str]:
@@ -314,6 +288,7 @@ def main(argv=None) -> int:
     from chalametpir_tpu_torch.ops import respond_packed as rp
     from chalametpir_tpu_torch.ops.client_device import DeviceQueryEngine, StreamingQueryEngine
     from chalametpir_tpu_torch.utils import telemetry
+    from bench_torch import keccak_bound_ms
 
     dev = torch.device("cuda")
     cuda_ms = scan_qd.cuda_ms  # one timing definition for every ms printed
@@ -1214,6 +1189,32 @@ def main(argv=None) -> int:
     del db, server, client, a_host, want
     torch.cuda.empty_cache()
     phase_done("phase 13")
+
+    # -- phase 14: the bench path, bench_torch.py's headline cell --------------
+    # its own process, as a user runs it; its launch record is its path's
+    bench = subprocess.Popen(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_torch.py"),
+         "--cell", BENCH_CELL, "--seed", str(BENCH_SEED)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = bench.communicate(timeout=BENCH_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(bench.pid, signal.SIGKILL)
+        raise AssertionError(f"bench_torch.py timed out:\n{bench.communicate()[1][-3000:]}")
+    lines = out.splitlines()
+    if bench.returncode != 0 or not lines:
+        raise AssertionError(f"bench_torch.py failed (rc {bench.returncode}):\n{err[-3000:]}")
+    last = json.loads(lines[-1])
+    log(f"phase 14 bench: {lines[-1]}")
+    if last["phase"] != "done" or last["correct"] is not True:
+        raise AssertionError(f"bench_torch.py --cell {BENCH_CELL}: not correct")
+    missing = [name for name in ("ctr_keccak", "respond_packed_scan", "respond_packed_mma")
+               if not last["launches"][name]]
+    if missing:
+        raise AssertionError(f"{', '.join(missing)} never ran on the bench path: {last['launches']}")
+    for name in launches:
+        launches[name] += last["launches"][name]
+    phase_done("phase 14")
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -9,8 +9,9 @@ contracts of parallel/multihost, the digit2 layout and the numpy oracle
 (ops/packed, ops/matmul_u32, ops/respond, the digit2 shard functions, the
 setup diagnostics), run in a subprocess where importing jax
 or chalametpir_tpu raises; the two-process demo and the quickstart under
-the same block; and no source of the port (parallel/ included), nor
-chip_smoke.py, nor examples/quickstart_torch.py, imports either."""
+the same block, and so is a run of bench_torch.py; and no source of the
+port (parallel/ included), nor chip_smoke.py, bench_torch.py or
+examples/quickstart_torch.py, imports either."""
 
 import os
 import signal
@@ -195,6 +196,16 @@ def test_quickstart_runs_on_the_cpu_without_jax():
         assert "quickstart OK" in proc.stdout and proc.stdout.count("value OK") == 3
 
 
+def test_bench_runs_on_the_cpu_without_jax():
+    """bench_torch.py --device cpu --log-n 10, the ctr cell, where importing
+    jax or chalametpir_tpu raises: every phase and check to a correct end."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "bench_torch.py")
+    code = "import runpy; sys.argv = sys.argv[1:]; runpy.run_path(sys.argv[0], run_name='__main__')"
+    proc = _run_blocked(code, [path, "--cell", "ctr-2p20-a3", "--seed", "2", "--device", "cpu", "--log-n", "10"], 300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert '"phase":"done","correct":true' in proc.stdout.splitlines()[-1]
+
+
 def test_multihost_demo_worker_without_jax():
     """One rank of the demo as a process group of its own (one process, a
     1 x 1 mesh) under the import block: initialize, warmup, the sharded
@@ -214,7 +225,7 @@ def test_multihost_demo_worker_without_jax():
 
 def test_port_sources_do_not_import_jax():
     """No line of the port's sources (parallel/ among them), nor of
-    chip_smoke.py or the port's quickstart, imports jax or chalametpir_tpu
+    chip_smoke.py, bench_torch.py or the port's quickstart, imports jax or chalametpir_tpu
     (`import x`, `import x.y`, `from x import`, `from x.y import`), at any
     indentation."""
     import pathlib
@@ -222,7 +233,8 @@ def test_port_sources_do_not_import_jax():
     import chalametpir_tpu_torch
 
     root = pathlib.Path(chalametpir_tpu_torch.__file__).parent
-    paths = [*root.rglob("*.py"), root.parent / "chip_smoke.py", root.parent / "examples" / "quickstart_torch.py"]
+    paths = [*root.rglob("*.py"), root.parent / "chip_smoke.py", root.parent / "bench_torch.py",
+             root.parent / "examples" / "quickstart_torch.py"]
     assert {"sharding.py", "multihost.py", "multihost_demo.py"} <= {p.name for p in paths if p.parent.name == "parallel"}
     assert {"packed.py", "matmul_u32.py", "respond.py", "digits.py"} <= {p.name for p in paths if p.parent.name == "ops"}
     assert {"profile_setup.py", "digit2_blocks.py"} <= {p.name for p in paths if p.parent.name == "diag"}
