@@ -2,13 +2,11 @@
 """Benchmark of chalametpir_tpu_torch on one NVIDIA GPU, one cell per run.
 
     python3 bench_torch.py --cell ctr-2p20-a3 --seed 1
-    python3 bench_torch.py --cell stream-2p20-a3 --seed 1
     python3 bench_torch.py --cell ctr-2p20-a3 --seed 1 --device cpu --log-n 10
 
 bench.py's measurements, made through the port. A cell is one fixed
-deployment under one traffic mix: CELLS holds the registered ones, the
-only choices of --cell, and QUEUED those written and tested on the CPU
-but not yet registered. A run builds the cell's DB from
+deployment under one traffic mix; CELLS holds them, the choices of
+--cell. A run builds the cell's DB from
 --seed (random 32-byte keys and random values: the bytes bench.build_db
 makes from the same generator), warms up on a small DB, drives the cell's
 traffic through the entry points a user calls (Server.setup,
@@ -67,6 +65,7 @@ import dataclasses
 import gc
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -91,7 +90,8 @@ RESTARTS = 5  # timed Server.load calls of one archive
 TAIL_BEYOND = 10  # samples beyond the reported tail percentile
 SAMPLED_COLS, SAMPLED_HINT, KEPT = 8, 16, 4
 TCP_CONNS, TCP_PER_CONN, TCP_MAX_BATCH = 16, 16, 16  # bench.py _run_serve_qps
-SPANS = ("bench.query", "bench.respond", "bench.process_response", "bench.respond_batch")
+TCP_TIMEOUT_S = 300.0  # the limit of each phase over the sockets: a stalled answer fails the run
+SPANS = ("bench.query", "bench.respond", "bench.process_response", "bench.respond_batch", "bench.serve")
 HTOD = "Memcpy HtoD"  # the prefix of the profiler's host-to-device copies
 
 
@@ -112,6 +112,7 @@ class Cell:
     restart: bool = False  # save, then RESTARTS timed Server.load calls
     client_engine: str = "resident"
     b: int | None = None  # element width; None derives it from the entry count
+    source: str = REFERENCE
 
 
 def by_name(*cells: Cell) -> dict[str, Cell]:
@@ -127,20 +128,26 @@ CELLS = by_name(
     Cell("stream-2p20-a3", 20,
          "the same DB in the reference's stream PRG mode, which Rust peers speak: the serial host "
          "XOF and A's copies for server and client, the stream fold (K1 at Q = 16)", prg_mode="stream"),
-)
-# written and tested on the CPU (the tests pass them to run()), not yet
-# registered: registering one moves it into CELLS
-QUEUED = by_name(
     Cell("ctr-2p21-a3-streaming", 21,
-         "the client's A (16.7 GB) over RESIDENT_PLANES_MAX_BYTES: query() streams A per batch",
-         client_engine="streaming"),
-    Cell("ctr-2p20-a3-tcp", 20, "the headline DB behind PirTcpServer: 16 connections, the dispatcher's batches",
-         traffic="tcp"),
+         "the client's A (16.7 GB) over RESIDENT_PLANES_MAX_BYTES: query() streams A per batch (K3, "
+         "the relayout, _int_mm); K1 over twice the headline rows; an operator past the client's budget",
+         client_engine="streaming",
+         source="bench.py:782 _run_scaling_point: 2^21 x 32 B keys x 1 kB values, arity 3, ctr, b derived"),
+    Cell("ctr-2p20-a3-tcp", 20,
+         "the headline DB behind PirTcpServer, as users reach it: 16 connections of closed-loop queries, "
+         "the dispatcher's coalesced batches (Q <= 16), framing", traffic="tcp",
+         source="bench.py:951 _run_serve_qps, 16 connections, max_batch 16, on the headline DB: "
+                "itzmeanjan/ChalametPIR v0.7.0 README.md:54-70, 2^20 x 32 B keys x 1 kB values, arity 3"),
     Cell("lo-2p23-b8", 23,
-         "2^23 x 1 kB geometry, b = 8: one 10.9 GB lo plane, K2 served; the plane made on the card from the seed",
-         traffic="lo", b=8, batches=20),
+         "2^23 x 1 kB geometry, b = 8: one 10.9 GB lo plane, K2 served at Q = 1 and 64; the plane made "
+         "on the card from the seed; the largest plane one card serves",
+         traffic="lo", b=8, batches=20,
+         source="bench.py:851 _run_scaling_synthetic: the serving geometry of 2^23 x 32 B keys x 1 kB "
+                "values, arity 3, at b = 8: a lo plane alone"),
     Cell("ctr-2p16-a4", 16, "a small DB at arity 4: the host work around a ~0.1 ms kernel sets the pace", arity=4,
-         responds=200, batches=20, restart=True),
+         responds=200, batches=20, restart=True,
+         source="itzmeanjan/ChalametPIR v0.7.0 divan bench, bench-results/*.png (BASELINE.md:30-48): "
+                "2^16 x 32 B keys x 1 kB values, arity 4"),
 )
 
 # Keccak-p[1600,12] in 32-bit integer operations, counted from the round of
@@ -233,7 +240,7 @@ class Record:
         self.layers: dict[str, list] = {}  # per layer
         self.launches: dict[str, int] | None = None
         self.correct: bool | None = None
-        self.full: dict = {"cell": dataclasses.asdict(cell), "source": REFERENCE, "walls_s": {}}
+        self.full: dict = {"cell": dataclasses.asdict(cell), "walls_s": {}}
         self.full_path = full_path
         self.t0 = time.perf_counter()
 
@@ -274,12 +281,14 @@ class Record:
 
 
 class Checks:
-    """Counts of answers checked and answers wrong, per kind of check."""
+    """Counts of answers checked and answers wrong, per kind of check, and
+    of queries made again after the protocol's indicator overflow."""
 
     KINDS = ("retrievals", "columns", "hint", "batch_vs_single")
 
     def __init__(self):
         self.counts = {kind: [0, 0] for kind in self.KINDS}  # [checked, wrong]
+        self.query_retries = 0
 
     def count(self, kind: str, ok: bool) -> None:
         self.counts[kind][0] += 1
@@ -293,15 +302,17 @@ class Checks:
 # -- the protocol through the port --------------------------------------------
 
 
-def query(client, key: bytes, fn=None) -> bytes:
-    """client.query (or `fn`), retried on the protocol's rare indicator overflow."""
+def query(client, key: bytes, checks: Checks, fn=None) -> bytes:
+    """client.query (or `fn`), retried on the protocol's rare indicator
+    overflow; each retry is counted in `checks` (a streaming client pays a
+    whole s.A batch for it)."""
     from chalametpir_tpu_torch import ArithmeticOverflowAddingQueryIndicator
 
     while True:
         try:
             return (fn or client.query)(key)
         except ArithmeticOverflowAddingQueryIndicator:
-            continue
+            checks.query_retries += 1
 
 
 def retrieve(client, key: bytes, response: bytes, db, checks: Checks) -> None:
@@ -346,19 +357,20 @@ def timed(fn, dev):
     return out, time.perf_counter() - t0
 
 
-def warm_up(prg_mode: str, n: int, dev, checks: Checks) -> None:
-    """An n-entry round trip in the cell's PRG mode before any timed
-    window: the card's context, the kernels' modules, the native engine
-    and torch's allocator are ready before the first timed call."""
+def warm_up(prg_mode: str, arity: int, n: int, dev, checks: Checks) -> None:
+    """An n-entry round trip in the cell's PRG mode and arity before any
+    timed window: the card's context, the kernels' modules, the native
+    engine and torch's allocator are ready before the first timed call."""
     from chalametpir_tpu_torch import Client, Server
 
     db = build_db(n, 1024, np.random.default_rng(0))
     seed = bytes(32)
-    server, hint, fparams = Server.setup(seed, db, prg_mode=prg_mode, rng=np.random.default_rng(0), device=dev)
+    server, hint, fparams = Server.setup(seed, db, arity=arity, prg_mode=prg_mode, rng=np.random.default_rng(0),
+                                         device=dev)
     client = Client.setup(seed, hint, fparams, prg_mode=prg_mode, device=dev)
     keys = list(db)[:BATCH]
     for key in keys[:4]:
-        retrieve(client, key, server.respond(query(client, key)), db, checks)
+        retrieve(client, key, server.respond(query(client, key, checks)), db, checks)
     qmat = np.stack([wire_row(qb) for qb in client.query_batch(keys[4:])])
     for key, row in zip(keys[4:], server.respond_batch(qmat)):
         retrieve(client, key, row_bytes(row), db, checks)
@@ -389,7 +401,7 @@ def closed_loop(client, server, keys, db, checks: Checks, kept: list | None = No
         if i == WARM:
             t0_rounds = time.perf_counter()
         with record_function("bench.query"):
-            qb = query(client, key)
+            qb = query(client, key, checks)
         with record_function("bench.respond"):
             t0 = time.perf_counter()
             rb = server.respond(qb)
@@ -440,13 +452,22 @@ def profile_window(rounds_fn, dev) -> dict:
 
 
 def copy_ms_by_span(spans: list[tuple[float, float, str]], copies: list[tuple[float, float]]) -> dict[str, list]:
-    """{span name: [device ms of the copies that start inside it, one sum
-    per instance of the span]} (spans: the host's (start, end, name);
-    copies: the device's (start, end); microseconds). A copy is the span's
-    that launched it, even where it ends after the span."""
+    """{span name: [device ms of the copies it launched, one sum per
+    instance of the span]} (spans: the host's (start, end, name), not
+    overlapping; copies: the device's (start, end); microseconds). A copy
+    is the span's that it overlaps most, even where it ends after the
+    span: the trace aligns the device's clock to the host's only to some
+    microseconds, so a copy launched as its span begins can read as
+    starting before it. A copy that overlaps no span is in none."""
+    sums = [0.0] * len(spans)
+    for c0, c1 in copies:
+        overlaps = [min(c1, s1) - max(c0, s0) for s0, s1, _ in spans]
+        best = max(range(len(spans)), key=overlaps.__getitem__, default=None)
+        if best is not None and overlaps[best] > 0:
+            sums[best] += c1 - c0
     out: dict[str, list] = {}
-    for s0, s1, name in spans:
-        out.setdefault(name, []).append(sum(c1 - c0 for c0, c1 in copies if s0 <= c0 < s1) / 1e3)
+    for (_, _, name), total in zip(spans, sums):
+        out.setdefault(name, []).append(total / 1e3)
     return out
 
 
@@ -618,11 +639,14 @@ def check_on_the_host(cell: Cell, seed: int, db, b: int, num_cols: int, fparams:
 # -- the kernels at the cell's shapes --------------------------------------------
 
 
-def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator) -> dict:
+def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, client=None) -> dict:
     """CUDA-event medians of each kernel of the cell's path at its own
-    shapes, each beside its bound and that bound's share of its time; on
-    the CPU the same rows, built and named, with None for each (no device
-    time is measured there)."""
+    shapes, each beside its bound, that bound's share of its time, the
+    kernels one call launches and its plain version's time on the same
+    inputs; for a streaming client also one s.A batch of its engine,
+    bounded by its Keccak work. On the CPU the same rows,
+    built and named, with None for each (no device time is measured
+    there)."""
     import torch
 
     from chalametpir_tpu_torch import kernels
@@ -631,7 +655,7 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator) -
     from chalametpir_tpu_torch.models.server import STREAM_BLOCK_ROWS, _ctr_chunk_cols
     from chalametpir_tpu_torch.ops import prg_torch
     from chalametpir_tpu_torch.ops.respond_packed import (
-        M_ALIGN, hint_fold_partial, pack_geometry, respond_batch_packed, respond_packed_core)
+        M_ALIGN, hint_fold_partial, pack_geometry, respond_batch_packed, respond_packed_core, respond_packed_ref)
     from chalametpir_tpu_torch.params import LWE_DIMENSION
 
     planes = server.planes
@@ -640,14 +664,23 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator) -
     pack = pack_geometry(b, c_pad)[0]
     rows = {}
 
-    def row(name: str, fn, reps: int, bound) -> None:
-        """Time fn; `bound` gives (least ms, what bounds it)."""
+    def row(name: str, fn, reps: int, bound, plain=None) -> None:
+        """Time fn after one call whose launches are counted, and `plain`,
+        its plain version, where given; `bound` gives (least ms, what
+        bounds it)."""
         if dev.type != "cuda":
             rows[name] = None
             return
-        ms, (least, by) = cuda_ms(fn, reps), bound()
-        rows[name] = {"ms": ms, "bound_ms": least, "bound_by": by, "of_bound": least / ms}
-        log(f"{name}: {ms:.4f} ms, bound {least:.4f} ms ({by}; {least / ms:.1%})")
+        before = dict(kernels.LAUNCHES)
+        fn()
+        torch.cuda.synchronize(dev)
+        launched = {k: n - before[k] for k, n in kernels.LAUNCHES.items() if n != before[k]}
+        ms, (least, by) = cuda_ms(fn, reps, warmup=0), bound()
+        plain_ms = cuda_ms(plain, 2) if plain else None
+        rows[name] = {"ms": ms, "bound_ms": least, "bound_by": by, "of_bound": least / ms, "launches": launched,
+                      "plain_ms": plain_ms}
+        log(f"{name}: {ms:.4f} ms, bound {least:.4f} ms ({by}; {least / ms:.1%}), launches {launched}, "
+            f"plain {plain_ms} ms")
 
     def random_u32(q: int, n: int) -> torch.Tensor:
         return torch.from_numpy(rng.integers(0, 1 << 32, size=(q, n), dtype=np.uint32).view(np.int32)).to(dev)
@@ -656,25 +689,35 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator) -
     for q in (1, BATCH) if cell.batches else (1,):
         queries = random_u32(q, m)
         row(f"{k}_{kernels.choose_regime(q, pack)}_q{q}", lambda: respond_batch_packed(queries, planes), 20,
-            lambda: bound_ms(q, m, c_pad, planes.device_bytes, b))
+            lambda: bound_ms(q, m, c_pad, planes.device_bytes, b),
+            lambda: respond_packed_ref(queries, planes.lo, planes.hi, b, c))
     if cell.traffic == "lo":
         return rows
+    if cell.client_engine == "streaming":
+        # query()'s batch once the pool is empty: one secret
+        engine, codes = client._engine, rng.integers(0, 3, size=(1, LWE_DIMENSION), dtype=np.uint8)
+        m_out = -(-m // 8) * 8
+        row("client_stream_batch", lambda: engine.matvec_batch_async(codes), 5,
+            lambda: keccak_bound_ms(-(-m_out * LWE_DIMENSION * 4 // 168)))
     if cell.prg_mode == "stream":
         block = random_u32(STREAM_BLOCK_ROWS, m)
         out = torch.zeros((STREAM_BLOCK_ROWS, c_pad), dtype=torch.int32, device=dev)
         row("stream_fold_block", lambda: respond_packed_core(block, planes.lo, planes.hi, b, c, out=out), 20,
-            lambda: bound_ms(STREAM_BLOCK_ROWS, m, c_pad, planes.device_bytes, b))
+            lambda: bound_ms(STREAM_BLOCK_ROWS, m, c_pad, planes.device_bytes, b),
+            lambda: respond_packed_ref(block, planes.lo, planes.hi, b, c))
         return rows
     # the ctr setup's chunk: its K3 blocks, then its fold
     cc = min(_ctr_chunk_cols(m, M_ALIGN), planes.lo.shape[0])
     words = prg_torch.seed_to_words(pir_seed)
     nblocks = cc * LWE_DIMENSION * 4 // 168 + 2
-    row("k3_chunk", lambda: prg_torch.ctr_blocks(words, 0, nblocks, dev), 10, lambda: keccak_bound_ms(nblocks))
+    row("k3_chunk", lambda: prg_torch.ctr_blocks(words, 0, nblocks, dev), 10, lambda: keccak_bound_ms(nblocks),
+        lambda: prg_torch.ctr_blocks_ref(words, 0, nblocks, dev))
     slab = prg_torch.expand_fp_slab(words, 0, cc, LWE_DIMENSION, dev)
     lo_c, hi_c = planes.lo[:cc], planes.hi[:cc] if planes.hi is not None else None
     chunk_bytes = lo_c.numel() + (hi_c.numel() if hi_c is not None else 0)
     row("ctr_fold_chunk", lambda: hint_fold_partial(slab.t(), lo_c, hi_c, b, c), 5,
-        lambda: bound_ms(LWE_DIMENSION, cc, c_pad, chunk_bytes, b))
+        lambda: bound_ms(LWE_DIMENSION, cc, c_pad, chunk_bytes, b),
+        lambda: respond_packed_ref(slab.t(), lo_c, hi_c, b, c))
     return rows
 
 
@@ -753,14 +796,14 @@ def client_phases(client, server, db, keys, rec: Record, checks: Checks) -> None
         made, times = [], []
         for key in group:
             t0 = time.perf_counter()
-            made.append(query(client, key, fn))
+            made.append(query(client, key, checks, fn))
             times.append(time.perf_counter() - t0)
         rec.metric(name, median_ms(times[1:]), "ms")
         rec.full[name.replace("_ms", "_samples_s")] = times[1:]
         for key, qb in zip(group, made):
             retrieve(client, key, server.respond(qb), db, checks)
     key = keys[-1]
-    rb = server.respond(query(client, key))
+    rb = server.respond(query(client, key, checks))
     held = client.discard_query(key)
     times = []
     for _ in range(PROCESS_TIMED):
@@ -856,7 +899,7 @@ def run_serve(cell: Cell, n: int, seed: int, dev, rec: Record, checks: Checks) -
     rec.layer("upload_q1_ms", profiled["htod_ms_by_span"].get("bench.respond"), "ms")
     rec.launches = dict(kernels.LAUNCHES)
 
-    record_kernels(rec, kernel_rows(cell, server, pir_seed, traffic))
+    record_kernels(rec, kernel_rows(cell, server, pir_seed, traffic, client))
     rec.emit("kernels")
 
     check_batch_vs_single(server, kept, checks)
@@ -869,75 +912,108 @@ def run_serve(cell: Cell, n: int, seed: int, dev, rec: Record, checks: Checks) -
 
 def run_tcp(cell: Cell, n: int, seed: int, dev, rec: Record, checks: Checks) -> None:
     """The DB behind the port's PirTcpServer (max_batch TCP_MAX_BATCH):
-    TCP_CONNS connections on 127.0.0.1, each sending TCP_PER_CONN
-    closed-loop queries made by one client beforehand (one warm query
-    each first); every response processed after the window."""
+    TCP_CONNS connections on 127.0.0.1, each sending one warm query, then
+    TCP_PER_CONN closed-loop queries (the timed window), then one more in
+    a profiled window; the queries made by one client beforehand, every
+    response processed after. Each phase over the sockets has
+    TCP_TIMEOUT_S: a connection that fails or stalls fails the run, and
+    the sockets and the dispatcher are closed either way."""
+    from torch.profiler import record_function
+
     from chalametpir_tpu_torch import kernels
     from chalametpir_tpu_torch.net.framing import read_frame, write_frame
     from chalametpir_tpu_torch.net.server import PirTcpServer
 
     db, pir_seed, server, hint, fparams, client = set_up(cell, n, seed, dev, rec)
     traffic = stream_of(seed, TRAFFIC)
-    per_conn = 1 + TCP_PER_CONN
+    per_conn = TCP_PER_CONN + 2  # the warm query, the timed ones, the profiled one
     all_keys = list(db)
     keys = [all_keys[i] for i in traffic.choice(n, size=TCP_CONNS * per_conn, replace=False)]
     with concurrent.futures.ThreadPoolExecutor(QUERY_THREADS) as makers:
         made = make_queries(client, keys, makers)
     max_resp = server.num_response_cols * 4 + 64
+    tcp = PirTcpServer(server, pir_seed, hint, fparams, max_batch=TCP_MAX_BATCH)
+    dispatcher = tcp._dispatcher
+    srv, conns = None, []
 
-    async def serve():
-        tcp = PirTcpServer(server, pir_seed, hint, fparams, max_batch=TCP_MAX_BATCH)
-        srv = await asyncio.start_server(tcp.handle, "127.0.0.1", 0)
+    async def connect(port: int):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        await reader.readexactly(32)
+        await read_frame(reader, 1 << 30)
+        await read_frame(reader, 4096)
+        return reader, writer
+
+    async def open_conns() -> list:
         port = srv.sockets[0].getsockname()[1]
+        return list(await asyncio.gather(*[connect(port) for _ in range(TCP_CONNS)]))
 
-        async def connect():
-            reader, writer = await asyncio.open_connection("127.0.0.1", port)
-            await reader.readexactly(32)
-            await read_frame(reader, 1 << 30)
-            await read_frame(reader, 4096)
-            return reader, writer
+    async def pump(conn, first: int, count: int) -> list:
+        reader, writer = conn
+        out = []
+        for j in range(first, first + count):
+            t0 = time.perf_counter()
+            write_frame(writer, made[j])
+            await writer.drain()
+            out.append((j, await read_frame(reader, max_resp), time.perf_counter() - t0))
+        return out
 
-        conns = await asyncio.gather(*[connect() for _ in range(TCP_CONNS)])
+    async def each_conn(first: int, count: int) -> list:
+        """Queries first..first+count-1 of every connection, the connections
+        at once, each closed-loop: (query index, response, seconds) rows.
+        One connection's failure cancels the others."""
+        async with asyncio.TaskGroup() as group:
+            tasks = [group.create_task(pump(conn, c * per_conn + first, count)) for c, conn in enumerate(conns)]
+        return [r for task in tasks for r in task.result()]
 
-        async def pump(c: int, first: int, count: int):
-            reader, writer = conns[c]
-            out = []
-            for j in range(c * per_conn + first, c * per_conn + first + count):
-                t0 = time.perf_counter()
-                write_frame(writer, made[j])
-                await writer.drain()
-                out.append((j, await read_frame(reader, max_resp), time.perf_counter() - t0))
-            return out
+    async def profiled_round() -> list:
+        with record_function("bench.serve"):
+            return await each_conn(1 + TCP_PER_CONN, 1)
 
-        warm = await asyncio.gather(*[pump(c, 0, 1) for c in range(TCP_CONNS)])
-        batches0, served0 = tcp._dispatcher.batches, tcp._dispatcher.served
-        t0 = time.perf_counter()
-        timed_ = await asyncio.gather(*[pump(c, 1, TCP_PER_CONN) for c in range(TCP_CONNS)])
-        wall = time.perf_counter() - t0
-        counts = tcp._dispatcher.batches - batches0, tcp._dispatcher.served - served0
+    async def close() -> None:
         for _, writer in conns:
             writer.close()
-        srv.close()
-        await srv.wait_closed()
-        await tcp._dispatcher.aclose()
-        return [r for rows in warm + timed_ for r in rows], [r[2] for rows in timed_ for r in rows], wall, counts
+        if srv is not None:
+            srv.close()
+        await dispatcher.aclose()
 
-    answers, latencies, wall, (batches, served) = asyncio.run(serve())
+    with asyncio.Runner() as runner:  # closing it cancels whatever is left on its loop
+
+        def phase(coro):
+            return runner.run(asyncio.wait_for(coro, TCP_TIMEOUT_S))
+
+        try:
+            srv = phase(asyncio.start_server(tcp.handle, "127.0.0.1", 0))
+            conns = phase(open_conns())
+            answers = phase(each_conn(0, 1))
+            batches0, served0 = dispatcher.batches, dispatcher.served
+            t0 = time.perf_counter()
+            timed_rows = phase(each_conn(1, TCP_PER_CONN))
+            wall = time.perf_counter() - t0
+            batches, served = dispatcher.batches - batches0, dispatcher.served - served0
+            profiled_rows = []
+            profiled = profile_window(lambda: profiled_rows.extend(phase(profiled_round())), dev)
+        finally:
+            phase(close())
+    latencies = [r[2] for r in timed_rows]
     rec.metric("serve_qps", len(latencies) / wall, "1/s")
     rec.metric("serve_ms", median_ms(latencies), "ms")
     p, value = tail(latencies)
     rec.metric(f"serve_p{p}_ms", value * 1e3, "ms")
     rec.layer("serve_batch_mean", served / batches, "queries")
     rec.full["serve_samples_s"] = latencies
+    rec.full["profile"] = profiled
+    rec.layer("device_idle_share", profiled["device_idle_share"], "1")
     rec.launches = dict(kernels.LAUNCHES)
+    log(f"TCP: {len(latencies) / wall:.1f} q/s, median {median_ms(latencies):.3f} ms, p{p} {value * 1e3:.3f} ms, "
+        f"{served / batches:.2f} queries a batch; profiled round: device idle {profiled['device_idle_share']}")
     kept = []
-    for j, rb, _ in answers:
+    for j, rb, _ in answers + timed_rows + profiled_rows:
         retrieve(client, keys[j], rb, db, checks)
         if len(kept) < 2 * KEPT:
             kept.append((wire_row(made[j]), wire_row(rb)))
     check_batch_vs_single(server, kept, checks)
     b, num_cols = server.mat_elem_bit_len, server.num_response_cols
-    del server, client
+    del server, client, tcp, dispatcher
     check_on_the_host(cell, seed, db, b, num_cols, fparams, hint, pir_seed, kept, traffic, checks, rec)
 
 
@@ -1023,6 +1099,7 @@ def run_lo(cell: Cell, n: int, seed: int, dev, rec: Record, checks: Checks) -> N
             batch_times.append(dt)
     kept += list(zip(qmat[:KEPT], resp[:KEPT]))
     rec.metric("respond_batch_qps", cell.batches * BATCH / sum(batch_times), "1/s")
+    rec.full["respond_samples_s"], rec.full["respond_batch_samples_s"] = times, batch_times
     qmats = [traffic.integers(0, 1 << 32, size=(BATCH, m), dtype=np.uint32) for _ in range(PROFILE_BATCHES)]
     batch_profile, _ = profile_batches(server, qmats, dev)
     rec.full["batch_profile"] = batch_profile
@@ -1070,7 +1147,7 @@ def run(cell: Cell, seed: int, device: str = "cuda", log_n: int | None = None,
         rec.full["kernel_build_s"] = kernels.build()
     t0 = time.perf_counter()
     n = 1 << (log_n or cell.log_n)
-    warm_up("stream" if cell.prg_mode == "stream" else "ctr", min(n, 1 << 12), dev, checks)
+    warm_up("stream" if cell.prg_mode == "stream" else "ctr", cell.arity, min(n, 1 << 12), dev, checks)
     kernels.reset_launch_counts()
     rec.full["warm_up_s"] = time.perf_counter() - t0
     try:
@@ -1078,7 +1155,10 @@ def run(cell: Cell, seed: int, device: str = "cuda", log_n: int | None = None,
     finally:
         gc.unfreeze()
         gc.collect()
-    log(f"checks (checked, wrong): {checks.counts}; correct {rec.correct}")
+    rec.full["query_retries"] = checks.query_retries
+    rec.full["peak_rss_GB"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9  # Linux: KiB
+    log(f"checks (checked, wrong): {checks.counts}; correct {rec.correct}; {checks.query_retries} query retries; "
+        f"peak RSS {rec.full['peak_rss_GB']:.2f} GB; wall {time.perf_counter() - rec.t0:.1f} s")
     rec.emit("done")
     return rec
 

@@ -1,22 +1,27 @@
 """bench_torch.py, the port's benchmark, on the CPU at 2^10 entries
-(--device cpu --log-n 10): its DB against bench.py's, every cell's
-runner to a correct end with every metric named, a response corrupted in
-one word caught, the sampled checks against the port's numpy oracle on
-the full product, their host reference against the JAX package's encode
-and PRG, the output discipline of a run in a subprocess, and the
-refusals (no card, --log-n on the card, a cell not yet registered)."""
+(--device cpu --log-n 10): its DB against bench.py's, every cell to a
+correct end with every metric named, in its record and its last line, a
+response corrupted in one word caught, a TCP connection dropped or
+stalled caught, the warm-up at the cell's arity, the sampled checks
+against the port's numpy oracle on the full product, their host
+reference against the JAX package's encode and PRG, the output
+discipline of a run in a subprocess, and the refusals (no card, --log-n
+on the card, a cell that is not registered)."""
 
+import asyncio
 import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 import bench_torch
-from chalametpir_tpu_torch import Server
+from chalametpir_tpu_torch import Server, kernels
 from chalametpir_tpu_torch.core import matrix_io
 from chalametpir_tpu_torch.params import LWE_DIMENSION, find_mat_elem_bit_len
 
@@ -34,13 +39,29 @@ E2E = {
     "lo-2p23-b8": {"plane_gen_s", "respond_ms", "respond_p90_ms", "respond_batch_qps"},
     "ctr-2p16-a4": SERVE | {"respond_p95_ms", "respond_batch_qps", "restart_s"},
 }
-# the per-layer metrics, null on the CPU but for the setup phases and the
-# TCP dispatcher's batch size
+# the per-layer metrics of each cell: the timed kernels (each as _ms and
+# _of_bound) and the device's idle shares and uploads, null on the CPU;
+# the host's, measured there too
+CTR_KERNELS = {"k1_scan_q1", "k1_mma_q64", "k3_chunk", "ctr_fold_chunk"}
 KERNELS = {
-    "ctr-2p20-a3": {"k1_scan_q1", "k1_mma_q64", "k3_chunk", "ctr_fold_chunk"},
+    "ctr-2p20-a3": CTR_KERNELS,
     "stream-2p20-a3": {"k1_scan_q1", "stream_fold_block"},
+    "ctr-2p21-a3-streaming": {"k1_scan_q1", "k3_chunk", "ctr_fold_chunk", "client_stream_batch"},
+    "ctr-2p20-a3-tcp": set(),
+    "lo-2p23-b8": {"k2_mma_q1", "k2_mma_q64"},
+    "ctr-2p16-a4": CTR_KERNELS,
 }
-UPLOADS = {"ctr-2p20-a3": {"upload_q1_ms", "upload_q64_ms"}, "stream-2p20-a3": {"upload_q1_ms"}}
+IN_RESPOND = {"device_idle_share", "device_idle_share_in_respond", "upload_q1_ms"}
+DEVICE = {
+    "ctr-2p20-a3": IN_RESPOND | {"upload_q64_ms"},
+    "stream-2p20-a3": IN_RESPOND,
+    "ctr-2p21-a3-streaming": IN_RESPOND,
+    "ctr-2p20-a3-tcp": {"device_idle_share"},
+    "lo-2p23-b8": IN_RESPOND | {"upload_q64_ms"},
+    "ctr-2p16-a4": IN_RESPOND | {"upload_q64_ms"},
+}
+HOST = {name: {"setup_phases_s"} for name in E2E} | {"ctr-2p20-a3-tcp": {"setup_phases_s", "serve_batch_mean"},
+                                                    "lo-2p23-b8": set()}
 
 
 def _run(cell, seed: int):
@@ -62,37 +83,106 @@ def test_build_db_gives_bench_py_s_bytes():
     assert list(bench_torch.build_db(300, 48, np.random.default_rng(7)).items()) == list(want.items())
 
 
-@pytest.mark.parametrize("name", ["ctr-2p20-a3", "stream-2p20-a3"])
-def test_registered_cell_completes_correct(name):
-    rec = _run(bench_torch.CELLS[name], 3)
-    layers = {f"{k}_ms" for k in KERNELS[name]} | {f"{k}_of_bound" for k in KERNELS[name]}
-    layers |= {"device_idle_share", "setup_phases_s"} | UPLOADS[name]
-    assert layers <= set(rec.layers), set(rec.layers)
-    for key in layers - {"setup_phases_s"}:
-        assert rec.layers[key][0] is None, key  # a device metric: not measured on the CPU
-    assert rec.layers["setup_phases_s"][0]
-    checked = rec.full["checks"]
-    assert all(checked[kind][0] > 0 and checked[kind][1] == 0 for kind in bench_torch.Checks.KINDS), checked
-    assert rec.full["profile"]["window_ms"] > 0
+@pytest.fixture(scope="module")
+def records() -> dict:
+    """Each cell's record, run once for the tests of this file that read it."""
+    return {}
 
 
-@pytest.mark.parametrize("name", ["ctr-2p21-a3-streaming", "ctr-2p20-a3-tcp", "lo-2p23-b8", "ctr-2p16-a4"])
-def test_queued_cell_completes_correct(name, monkeypatch):
+def _record(records: dict, name: str):
     import chalametpir_tpu_torch.models.client as port_client
 
-    cell = bench_torch.QUEUED[name]
-    if cell.client_engine == "streaming":
-        # every query then regenerates A through the plain Keccak: the file's longest case
-        monkeypatch.setattr(port_client, "RESIDENT_PLANES_MAX_BYTES", 0)
-    _run(cell, 4)
+    if name not in records:
+        cell = bench_torch.CELLS[name]
+        with pytest.MonkeyPatch.context() as patch:
+            if cell.client_engine == "streaming":
+                # every query then regenerates A through the plain Keccak: the file's longest case
+                patch.setattr(port_client, "RESIDENT_PLANES_MAX_BYTES", 0)
+            records[name] = _run(cell, 3)
+    return records[name]
 
 
-@pytest.mark.parametrize("name", sorted(bench_torch.QUEUED))
-def test_cli_refuses_a_cell_not_yet_registered(name, capsys):
-    assert name not in bench_torch.CELLS
+def test_every_cell_is_registered_with_a_source():
+    assert set(bench_torch.CELLS) == set(E2E)
+    assert all(0 < len(cell.source) <= 200 for cell in bench_torch.CELLS.values())
+
+
+@pytest.mark.parametrize("name", sorted(E2E))
+def test_registered_cell_completes_correct(name, records):
+    rec = _record(records, name)
+    device = {f"{k}_ms" for k in KERNELS[name]} | {f"{k}_of_bound" for k in KERNELS[name]} | DEVICE[name]
+    assert device | HOST[name] <= set(rec.layers), set(rec.layers)
+    for key in device:
+        assert rec.layers[key][0] is None, key  # a device metric: not measured on the CPU
+    for key in HOST[name]:
+        assert rec.layers[key][0], key
+    checked = rec.full["checks"]
+    kinds = ("columns", "batch_vs_single") if name == "lo-2p23-b8" else bench_torch.Checks.KINDS
+    assert all(checked[kind][0] > 0 and checked[kind][1] == 0 for kind in kinds), checked
+    assert rec.full["profile"]["window_ms"] > 0
+    assert rec.full["query_retries"] >= 0 and rec.full["peak_rss_GB"] > 0
+
+
+@pytest.mark.parametrize("name", sorted(E2E))
+def test_last_line_holds_the_cells_metrics(name, records):
+    """The run's last line names every end-to-end metric of the cell (PERF.md
+    section 4), each with a value and a unit, and every per-layer one."""
+    rec = _record(records, name)
+    last = json.loads(rec.line("done"))
+    assert last["cell"] == name and last["phase"] == "done" and last["correct"] is True
+    assert E2E[name] <= set(last["metrics"]), set(last["metrics"])
+    assert all(value is not None and unit for value, unit in last["metrics"].values())
+    assert set(last["layers"]) == set(rec.layers)
+    assert set(last["launches"]) == set(kernels.LAUNCHES)
+
+
+@pytest.mark.parametrize("name", ["ctr-2p22-a3", "CTR-2P20-A3", ""])
+def test_cli_refuses_an_unknown_cell(name, capsys):
     with pytest.raises(SystemExit) as exc:
         bench_torch.main(["--cell", name, "--seed", "1", *CPU])
     assert exc.value.code == 2 and capsys.readouterr().out == ""
+
+
+def test_warm_up_runs_at_the_cells_arity(monkeypatch):
+    """The first arity-4 setup is the warm-up's, not the timed one's."""
+    arities = []
+    original = Server.setup.__func__
+
+    def spy(cls, *args, **kwargs):
+        arities.append(kwargs["arity"])
+        return original(cls, *args, **kwargs)
+
+    monkeypatch.setattr(Server, "setup", classmethod(spy))
+    bench_torch.warm_up("ctr", 4, 1 << 8, torch.device("cpu"), bench_torch.Checks())
+    assert arities == [4]
+
+
+@pytest.mark.parametrize("fault", ["dropped", "stalled"])
+def test_tcp_fault_ends_the_run_incorrect(fault, monkeypatch, capsys):
+    """A query the server drops its connection over, or one whose answer
+    never comes, in the timed window: the run ends within the phase limit,
+    exit 1, its last line `correct` false."""
+    from chalametpir_tpu_torch.errors import ChalametPIRError
+    from chalametpir_tpu_torch.net.server import BatchDispatcher
+
+    original = BatchDispatcher.submit
+    calls = []
+
+    async def faulty(self, query_bytes):
+        calls.append(len(query_bytes))
+        if len(calls) == 2 * bench_torch.TCP_CONNS + 8:
+            if fault == "dropped":
+                raise ChalametPIRError("dropped")
+            await asyncio.Event().wait()
+        return await original(self, query_bytes)
+
+    monkeypatch.setattr(BatchDispatcher, "submit", faulty)
+    monkeypatch.setattr(bench_torch, "TCP_TIMEOUT_S", 5.0)
+    t0 = time.perf_counter()
+    assert bench_torch.main(["--cell", "ctr-2p20-a3-tcp", "--seed", "5", *CPU]) == 1
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert last["correct"] is False and last["phase"] == "failed"
+    assert time.perf_counter() - t0 < 60
 
 
 def test_corrupted_response_word_makes_the_run_incorrect(monkeypatch, capsys):
@@ -190,6 +280,16 @@ def test_copy_ms_by_span_gives_each_span_the_copies_it_started():
     copies = [(1, 3), (11, 12), (13, 16), (25, 26), (40, 41)]
     assert bench_torch.copy_ms_by_span(spans, copies) == pytest.approx(
         {"bench.query": [2e-3], "bench.respond": [4e-3, 1e-3]})
+
+
+def test_copy_ms_by_span_keeps_a_copy_that_reads_as_starting_before_its_span():
+    """The lo cell's trace on the card: a batch's upload starts within
+    microseconds of its span, and on the device's clock two of four read as
+    starting before it; each is still its span's."""
+    spans = [(100 + 400 * i, 480 + 400 * i, "bench.respond_batch") for i in range(4)]
+    copies = [(99.5, 470), (500.2, 875), (899, 1270), (1300.1, 1670)]
+    got = bench_torch.copy_ms_by_span(spans, copies)["bench.respond_batch"]
+    assert got == pytest.approx([(c1 - c0) / 1e3 for c0, c1 in copies])
 
 
 @pytest.mark.parametrize("n,p", [(200, 95), (100, 90), (256, 96)])
