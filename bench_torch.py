@@ -136,8 +136,8 @@ CELLS = by_name(
     Cell("ctr-2p20-a3-tcp", 20,
          "the headline DB behind PirTcpServer, as users reach it: 16 connections of closed-loop queries, "
          "the dispatcher's coalesced batches (Q <= 16), framing", traffic="tcp",
-         source="bench.py:951 _run_serve_qps, 16 connections, max_batch 16, on the headline DB: "
-                "itzmeanjan/ChalametPIR v0.7.0 README.md:54-70, 2^20 x 32 B keys x 1 kB values, arity 3"),
+         source="bench.py:951 _run_serve_qps's connection shape (16 connections, max_batch 16; its DB is 2^16) "
+                "on the 2^20 x 32 B x 1 kB arity-3 headline DB (README.md:54-70), 16 queries a connection"),
     Cell("lo-2p23-b8", 23,
          "2^23 x 1 kB geometry, b = 8: one 10.9 GB lo plane, K2 served at Q = 1 and 64; the plane made "
          "on the card from the seed; the largest plane one card serves",
@@ -148,6 +148,18 @@ CELLS = by_name(
          responds=200, batches=20, restart=True,
          source="itzmeanjan/ChalametPIR v0.7.0 divan bench, bench-results/*.png (BASELINE.md:30-48): "
                 "2^16 x 32 B keys x 1 kB values, arity 4"),
+    Cell("ctr-2p20-a4", 20,
+         "the headline DB at arity 4: the 4-wise filter and encode at full size, m 4 % under arity 3's; the "
+         "client's A (8.02 GB) 7 % under RESIDENT_PLANES_MAX_BYTES, so resident; the ctr-2p20-a3 traffic",
+         arity=4, responds=200, batches=20, restart=True,
+         source="bench.py:1279-1297 run_stage(20, 4, \"ctr\"): the 2^20 arity-4 row; the reference's 2^20 "
+                "arity-4 bench (BASELINE.md:30-48): 2^20 x 32 B keys x 1 kB values, arity 4, ctr"),
+    Cell("ctr-2p22-a3-streaming", 22,
+         "bench.py's default scaling point: the client's A (33.5 GB) streamed in 72 K3 slabs a batch; a 4.83 GB "
+         "lo plane past 2^32 bytes beside its hi plane; an 18.9 MB query; an operator with 4 M records",
+         client_engine="streaming",
+         source="bench.py:1384,1412 _run_scaling_point(22): 2^22 x 32 B keys x 1 kB values, arity 3, ctr, "
+                "b derived"),
 )
 
 # Keccak-p[1600,12] in 32-bit integer operations, counted from the round of

@@ -1,7 +1,8 @@
 """bench_torch.py, the port's benchmark, on the CPU at 2^10 entries
 (--device cpu --log-n 10): its DB against bench.py's, every cell to a
-correct end with every metric named, in its record and its last line, a
-response corrupted in one word caught, a TCP connection dropped or
+correct end with every metric named, in its record and its last line, the
+full-size geometry of the 2^20 arity-4 and 2^22 cells (computed, never
+built), a response corrupted in one word caught, a TCP connection dropped or
 stalled caught, the warm-up at the cell's arity, the sampled checks
 against the port's numpy oracle on the full product, their host
 reference against the JAX package's encode and PRG, the output
@@ -38,6 +39,8 @@ E2E = {
     "ctr-2p20-a3-tcp": {"server_setup_s", "client_setup_s", "serve_qps", "serve_ms", "serve_p96_ms"},
     "lo-2p23-b8": {"plane_gen_s", "respond_ms", "respond_p90_ms", "respond_batch_qps"},
     "ctr-2p16-a4": SERVE | {"respond_p95_ms", "respond_batch_qps", "restart_s"},
+    "ctr-2p20-a4": SERVE | {"respond_p95_ms", "respond_batch_qps", "restart_s"},
+    "ctr-2p22-a3-streaming": SERVE | {"respond_p90_ms"},
 }
 # the per-layer metrics of each cell: the timed kernels (each as _ms and
 # _of_bound) and the device's idle shares and uploads, null on the CPU;
@@ -50,6 +53,8 @@ KERNELS = {
     "ctr-2p20-a3-tcp": set(),
     "lo-2p23-b8": {"k2_mma_q1", "k2_mma_q64"},
     "ctr-2p16-a4": CTR_KERNELS,
+    "ctr-2p20-a4": CTR_KERNELS,
+    "ctr-2p22-a3-streaming": {"k1_scan_q1", "k3_chunk", "ctr_fold_chunk", "client_stream_batch"},
 }
 IN_RESPOND = {"device_idle_share", "device_idle_share_in_respond", "upload_q1_ms"}
 DEVICE = {
@@ -59,6 +64,8 @@ DEVICE = {
     "ctr-2p20-a3-tcp": {"device_idle_share"},
     "lo-2p23-b8": IN_RESPOND | {"upload_q64_ms"},
     "ctr-2p16-a4": IN_RESPOND | {"upload_q64_ms"},
+    "ctr-2p20-a4": IN_RESPOND | {"upload_q64_ms"},
+    "ctr-2p22-a3-streaming": IN_RESPOND,
 }
 HOST = {name: {"setup_phases_s"} for name in E2E} | {"ctr-2p20-a3-tcp": {"setup_phases_s", "serve_batch_mean"},
                                                     "lo-2p23-b8": set()}
@@ -134,6 +141,47 @@ def test_last_line_holds_the_cells_metrics(name, records):
     assert all(value is not None and unit for value, unit in last["metrics"].values())
     assert set(last["layers"]) == set(rec.layers)
     assert set(last["launches"]) == set(kernels.LAUNCHES)
+
+
+# each cell of bench.py's 2^20 arity-4 row and 2^22 scaling point at its
+# full size: (arity, log2 entries, m, engine, closed-loop responds, batches,
+# restart)
+FULL_SIZE = {
+    "ctr-2p20-a4": (4, 20, 1_130_496, "resident", 200, 20, True),
+    "ctr-2p22-a3-streaming": (3, 22, 4_718_592, "streaming", 100, 0, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FULL_SIZE))
+def test_cell_holds_its_full_size_geometry(name):
+    """The cell's fields, and the geometry its full-size DB gets, computed
+    without building it: m (the reference's query is 8 + 4m bytes), b = 9,
+    c = 940 in 1024 padded columns, the planes' bytes, and the side of
+    RESIDENT_PLANES_MAX_BYTES that the client's A falls on."""
+    from chalametpir_tpu_torch.core import codec
+    from chalametpir_tpu_torch.core.filter import filter_geometry
+    from chalametpir_tpu_torch.models import client as port_client
+    from chalametpir_tpu_torch.ops.respond_packed import LANE, M_ALIGN, pack_geometry
+
+    arity, log_n, m, engine, responds, batches, restart = FULL_SIZE[name]
+    cell = bench_torch.CELLS[name]
+    assert (cell.arity, cell.log_n, cell.client_engine, cell.responds, cell.batches, cell.restart) == (
+        arity, log_n, engine, responds, batches, restart)
+    assert (cell.prg_mode, cell.traffic, cell.value_len, cell.b) == ("ctr", "serve", 1024, None)
+    assert filter_geometry(arity, 1 << log_n)[2] == m
+    b = find_mat_elem_bit_len(1 << log_n)
+    c = codec.encoded_row_width(cell.value_len, b)
+    c_pad = -(-c // LANE) * LANE
+    assert (b, c, c_pad) == (9, 940, 1024)
+    pack, _, pc = pack_geometry(b, c_pad)
+    lo_bytes = -(-m // M_ALIGN) * M_ALIGN * c_pad
+    planes_gb = (lo_bytes + lo_bytes // c_pad * pc) / 1e9
+    assert pack == 8 and planes_gb == pytest.approx({20: 1.30, 22: 5.44}[log_n], abs=0.01)
+    assert (lo_bytes > 1 << 32) == (log_n == 22)  # the lo plane's offsets pass 32 bits
+    a_bytes = 4 * m * LWE_DIMENSION
+    assert (a_bytes > port_client.RESIDENT_PLANES_MAX_BYTES) == (engine == "streaming")
+    assert port_client.uses_streaming(m) == (engine == "streaming")
+    assert a_bytes / 1e9 == pytest.approx({20: 8.02, 22: 33.48}[log_n], abs=0.01)
 
 
 @pytest.mark.parametrize("name", ["ctr-2p22-a3", "CTR-2P20-A3", ""])
