@@ -61,6 +61,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -110,7 +111,7 @@ class Cell:
     responds: int = 100  # closed-loop server.respond calls, after WARM
     batches: int = 0  # closed-loop respond_batch calls of BATCH distinct queries, after one
     restart: bool = False  # save, then RESTARTS timed Server.load calls
-    client_engine: str = "resident"
+    client_engine: str = "resident"  # "resident", "streaming" or "host" (Client.setup(device=False))
     b: int | None = None  # element width; None derives it from the entry count
     source: str = REFERENCE
 
@@ -128,6 +129,13 @@ CELLS = by_name(
     Cell("stream-2p20-a3", 20,
          "the same DB in the reference's stream PRG mode, which Rust peers speak: the serial host "
          "XOF and A's copies for server and client, the stream fold (K1 at Q = 16)", prg_mode="stream"),
+    Cell("stream-2p20-a3-host", 20,
+         "stream-2p20-a3's DB and traffic with bench.py's interop client, Client.setup(device=False): A (8.37 GB) "
+         "in host memory, s.A in the native ternary matvec on one core; the server on the card (stream fold, K1 "
+         "scan); the client launches nothing",
+         prg_mode="stream", client_engine="host",
+         source="bench.py:1431-1442 run_stage(20, 3, \"stream\", client_device=False): the 2^20 stream row, its host "
+                "client the Rust/WASM interop peer (:1366-1368); 2^20 x 32 B x 1 kB, arity 3"),
     Cell("ctr-2p21-a3-streaming", 21,
          "the client's A (16.7 GB) over RESIDENT_PLANES_MAX_BYTES: query() streams A per batch (K3, "
          "the relayout, _int_mm); K1 over twice the headline rows; an operator past the client's budget",
@@ -292,23 +300,52 @@ class Record:
             os.replace(self.full_path + ".tmp", self.full_path)
 
 
+def card_use(dev) -> tuple[int, int]:
+    """(kernel launches, allocations on the card) so far: the port's launch
+    counts and torch's count of allocation requests on `dev`."""
+    import torch
+
+    from chalametpir_tpu_torch import kernels
+
+    return sum(kernels.LAUNCHES.values()), torch.cuda.memory_stats(dev).get("allocation.all.allocated", 0)
+
+
 class Checks:
-    """Counts of answers checked and answers wrong, per kind of check, and
-    of queries made again after the protocol's indicator overflow."""
+    """Counts of answers checked and answers wrong, per kind of check, of
+    queries made again after the protocol's indicator overflow, and of what
+    a host client did on the card (it must do nothing there)."""
 
     KINDS = ("retrievals", "columns", "hint", "batch_vs_single")
 
     def __init__(self):
         self.counts = {kind: [0, 0] for kind in self.KINDS}  # [checked, wrong]
         self.query_retries = 0
+        self.host_card_use = {"launches": 0, "allocations": 0}
 
     def count(self, kind: str, ok: bool) -> None:
         self.counts[kind][0] += 1
         self.counts[kind][1] += not ok
 
+    @contextlib.contextmanager
+    def card_use_of(self, host: bool, dev):
+        """Around a client's work: for a host client (`host`) on a card, the
+        kernels launched and the card allocations made inside the block are
+        added to host_card_use; for a device client, or on the CPU, nothing."""
+        if not host or dev.type != "cuda":
+            yield
+            return
+        before = card_use(dev)
+        try:
+            yield
+        finally:
+            for name, b0, b1 in zip(self.host_card_use, before, card_use(dev)):
+                self.host_card_use[name] += b1 - b0
+
     def correct(self, kinds) -> bool:
-        """Every check of `kinds` made at least once, none wrong."""
-        return all(self.counts[k][0] > 0 and self.counts[k][1] == 0 for k in kinds)
+        """Every check of `kinds` made at least once, none wrong, and no
+        card use by a host client."""
+        return (all(self.counts[k][0] > 0 and self.counts[k][1] == 0 for k in kinds)
+                and not any(self.host_card_use.values()))
 
 
 # -- the protocol through the port --------------------------------------------
@@ -412,13 +449,13 @@ def closed_loop(client, server, keys, db, checks: Checks, kept: list | None = No
     for i, key in enumerate(keys):
         if i == WARM:
             t0_rounds = time.perf_counter()
-        with record_function("bench.query"):
+        with record_function("bench.query"), checks.card_use_of(not client.uses_device, server.device):
             qb = query(client, key, checks)
         with record_function("bench.respond"):
             t0 = time.perf_counter()
             rb = server.respond(qb)
             dt = time.perf_counter() - t0
-        with record_function("bench.process_response"):
+        with record_function("bench.process_response"), checks.card_use_of(not client.uses_device, server.device):
             retrieve(client, key, rb, db, checks)
         if i >= WARM:
             times.append(dt)
@@ -654,18 +691,22 @@ def check_on_the_host(cell: Cell, seed: int, db, b: int, num_cols: int, fparams:
 def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, client=None) -> dict:
     """CUDA-event medians of each kernel of the cell's path at its own
     shapes, each beside its bound, that bound's share of its time, the
-    kernels one call launches and its plain version's time on the same
-    inputs; for a streaming client also one s.A batch of its engine,
-    bounded by its Keccak work. On the CPU the same rows,
-    built and named, with None for each (no device time is measured
-    there)."""
+    kernels one call launches, its plain version's time on the same
+    inputs and, for a batch of BATCH queries, the library call's:
+    torch._int_mm(qd, lo) of the batch's 4 * BATCH int8 query digit rows
+    and the lo plane (diag/scan_qd.py `int_mm_ms`; over a hi plane too it
+    is the lo product alone); for a streaming client also one s.A batch
+    of its engine, bounded by its Keccak work. A host client launches
+    nothing and has no row. On the CPU the same rows, built and named,
+    with None for each (no device time is measured there)."""
     import torch
 
     from chalametpir_tpu_torch import kernels
     from chalametpir_tpu_torch.diag.respond_regimes import bound_ms
-    from chalametpir_tpu_torch.diag.scan_qd import cuda_ms
+    from chalametpir_tpu_torch.diag.scan_qd import cuda_ms, int_mm_ms
     from chalametpir_tpu_torch.models.server import STREAM_BLOCK_ROWS, _ctr_chunk_cols
     from chalametpir_tpu_torch.ops import prg_torch
+    from chalametpir_tpu_torch.ops.digits import prepare_query_digits
     from chalametpir_tpu_torch.ops.respond_packed import (
         M_ALIGN, hint_fold_partial, pack_geometry, respond_batch_packed, respond_packed_core, respond_packed_ref)
     from chalametpir_tpu_torch.params import LWE_DIMENSION
@@ -676,10 +717,10 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, c
     pack = pack_geometry(b, c_pad)[0]
     rows = {}
 
-    def row(name: str, fn, reps: int, bound, plain=None) -> None:
+    def row(name: str, fn, reps: int, bound, plain=None, library=None) -> None:
         """Time fn after one call whose launches are counted, and `plain`,
         its plain version, where given; `bound` gives (least ms, what
-        bounds it)."""
+        bounds it); `library` the library call's ms, where there is one."""
         if dev.type != "cuda":
             rows[name] = None
             return
@@ -689,10 +730,11 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, c
         launched = {k: n - before[k] for k, n in kernels.LAUNCHES.items() if n != before[k]}
         ms, (least, by) = cuda_ms(fn, reps, warmup=0), bound()
         plain_ms = cuda_ms(plain, 2) if plain else None
+        library_ms = library() if library else None
         rows[name] = {"ms": ms, "bound_ms": least, "bound_by": by, "of_bound": least / ms, "launches": launched,
-                      "plain_ms": plain_ms}
+                      "plain_ms": plain_ms, "library_ms": library_ms}
         log(f"{name}: {ms:.4f} ms, bound {least:.4f} ms ({by}; {least / ms:.1%}), launches {launched}, "
-            f"plain {plain_ms} ms")
+            f"plain {plain_ms} ms, library {library_ms} ms")
 
     def random_u32(q: int, n: int) -> torch.Tensor:
         return torch.from_numpy(rng.integers(0, 1 << 32, size=(q, n), dtype=np.uint32).view(np.int32)).to(dev)
@@ -700,9 +742,13 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, c
     k = "k1" if pack else "k2"
     for q in (1, BATCH) if cell.batches else (1,):
         queries = random_u32(q, m)
+        library = None
+        if q == BATCH and dev.type == "cuda":
+            qd = prepare_query_digits(queries, planes.lo.shape[0])[0]
+            library = lambda: int_mm_ms(qd, planes.lo)  # noqa: E731
         row(f"{k}_{kernels.choose_regime(q, pack)}_q{q}", lambda: respond_batch_packed(queries, planes), 20,
             lambda: bound_ms(q, m, c_pad, planes.device_bytes, b),
-            lambda: respond_packed_ref(queries, planes.lo, planes.hi, b, c))
+            lambda: respond_packed_ref(queries, planes.lo, planes.hi, b, c), library)
     if cell.traffic == "lo":
         return rows
     if cell.client_engine == "streaming":
@@ -738,6 +784,8 @@ def record_kernels(rec: Record, rows: dict) -> None:
     for name, r in rows.items():
         rec.layer(f"{name}_ms", r and r["ms"], "ms")
         rec.layer(f"{name}_of_bound", r and r["of_bound"], "1")
+        if name.endswith(f"_q{BATCH}"):
+            rec.layer(f"{name}_int_mm_ms", r and r["library_ms"], "ms")
 
 
 # -- the runners ---------------------------------------------------------------
@@ -761,9 +809,10 @@ def setup_stats_fields(stats: dict) -> dict:
     return out
 
 
-def set_up(cell: Cell, n: int, seed: int, dev, rec: Record):
+def set_up(cell: Cell, n: int, seed: int, dev, rec: Record, checks: Checks):
     """The cell's DB (untimed), then Server.setup and Client.setup, each
-    timed by the host clock to a synchronised end."""
+    timed by the host clock to a synchronised end. The client is set up on
+    `dev`, or with device=False (the host engine) for a "host" cell."""
     from chalametpir_tpu_torch import Client, Server
 
     t0 = time.perf_counter()
@@ -781,7 +830,10 @@ def set_up(cell: Cell, n: int, seed: int, dev, rec: Record):
     rec.layer("setup_phases_s", server.setup_stats.get("phases_s"), "s")
     log(f"server setup {setup_s:.3f} s, b={server.mat_elem_bit_len}, m={server.num_query_cols}, "
         f"c={server.num_response_cols}")
-    client, client_s = timed(lambda: Client.setup(pir_seed, hint, fparams, prg_mode=cell.prg_mode, device=dev), dev)
+    client_dev = False if cell.client_engine == "host" else dev
+    with checks.card_use_of(cell.client_engine == "host", dev):
+        client, client_s = timed(lambda: Client.setup(pir_seed, hint, fparams, prg_mode=cell.prg_mode,
+                                                      device=client_dev), dev)
     rec.metric("client_setup_s", client_s, "s")
     rec.full["client_setup_stats"] = client.setup_stats
     if client.setup_stats["engine"] != cell.client_engine:
@@ -799,17 +851,21 @@ def client_phases(client, server, db, keys, rec: Record, checks: Checks) -> None
     insert_query, the median of PROCESS_TIMED. Every query is answered and
     its value checked after its timing."""
     dev = server.device
-    _, prep_s = timed(lambda: client.prepare_queries(POOL), dev)
+    with checks.card_use_of(not client.uses_device, dev):
+        _, prep_s = timed(lambda: client.prepare_queries(POOL), dev)
     rec.metric("client_prepare_per_query_ms", prep_s / POOL * 1e3, "ms")
-    rec.full["client_prepare_stats"] = dict(client.prepare_stats)
+    stats = rec.full["client_prepare_stats"] = dict(client.prepare_stats)
+    if "host_matvec_s" in stats:  # the host engine's s.A, one secret each
+        rec.layer("host_matvec_ms", stats["host_matvec_s"] / stats["count"] * 1e3, "ms")
     pooled, inline = keys[: 1 + POOLED_TIMED], keys[1 + POOLED_TIMED : 2 + POOLED_TIMED + INLINE_TIMED]
     for group, fn, name in ((pooled, client.query, "client_query_ms"),
                             (inline, client.query_inline, "client_query_inline_ms")):
         made, times = [], []
-        for key in group:
-            t0 = time.perf_counter()
-            made.append(query(client, key, checks, fn))
-            times.append(time.perf_counter() - t0)
+        with checks.card_use_of(not client.uses_device, dev):
+            for key in group:
+                t0 = time.perf_counter()
+                made.append(query(client, key, checks, fn))
+                times.append(time.perf_counter() - t0)
         rec.metric(name, median_ms(times[1:]), "ms")
         rec.full[name.replace("_ms", "_samples_s")] = times[1:]
         for key, qb in zip(group, made):
@@ -818,12 +874,13 @@ def client_phases(client, server, db, keys, rec: Record, checks: Checks) -> None
     rb = server.respond(query(client, key, checks))
     held = client.discard_query(key)
     times = []
-    for _ in range(PROCESS_TIMED):
-        client.insert_query(key, held)
-        t0 = time.perf_counter()
-        value = client.process_response(key, rb)
-        times.append(time.perf_counter() - t0)
-        checks.count("retrievals", value == db[key])
+    with checks.card_use_of(not client.uses_device, dev):
+        for _ in range(PROCESS_TIMED):
+            client.insert_query(key, held)
+            t0 = time.perf_counter()
+            value = client.process_response(key, rb)
+            times.append(time.perf_counter() - t0)
+            checks.count("retrievals", value == db[key])
     rec.metric("client_process_response_us", statistics.median(times) * 1e6, "us")
 
 
@@ -838,7 +895,7 @@ def run_serve(cell: Cell, n: int, seed: int, dev, rec: Record, checks: Checks) -
 
     from chalametpir_tpu_torch import Server, kernels
 
-    db, pir_seed, server, hint, fparams, client = set_up(cell, n, seed, dev, rec)
+    db, pir_seed, server, hint, fparams, client = set_up(cell, n, seed, dev, rec, checks)
     traffic = stream_of(seed, TRAFFIC)
     keys = list(db)
 
@@ -936,7 +993,7 @@ def run_tcp(cell: Cell, n: int, seed: int, dev, rec: Record, checks: Checks) -> 
     from chalametpir_tpu_torch.net.framing import read_frame, write_frame
     from chalametpir_tpu_torch.net.server import PirTcpServer
 
-    db, pir_seed, server, hint, fparams, client = set_up(cell, n, seed, dev, rec)
+    db, pir_seed, server, hint, fparams, client = set_up(cell, n, seed, dev, rec, checks)
     traffic = stream_of(seed, TRAFFIC)
     per_conn = TCP_PER_CONN + 2  # the warm query, the timed ones, the profiled one
     all_keys = list(db)
@@ -1168,8 +1225,10 @@ def run(cell: Cell, seed: int, device: str = "cuda", log_n: int | None = None,
         gc.unfreeze()
         gc.collect()
     rec.full["query_retries"] = checks.query_retries
+    rec.full["host_client_card_use"] = checks.host_card_use
     rec.full["peak_rss_GB"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9  # Linux: KiB
-    log(f"checks (checked, wrong): {checks.counts}; correct {rec.correct}; {checks.query_retries} query retries; "
+    log(f"checks (checked, wrong): {checks.counts}; host client's card use {checks.host_card_use}; "
+        f"correct {rec.correct}; {checks.query_retries} query retries; "
         f"peak RSS {rec.full['peak_rss_GB']:.2f} GB; wall {time.perf_counter() - rec.t0:.1f} s")
     rec.emit("done")
     return rec

@@ -1,4 +1,4 @@
-"""The PIR client with its s . A engine on a torch device.
+"""The PIR client with its s . A engine on a torch device or on the host.
 
 The port's own client: the host protocol of the JAX package's client
 (chalametpir_tpu/models/client.py) copied, not inherited — query,
@@ -8,8 +8,10 @@ refill thread, save/load and the ternary sampling — with its wire bytes
 and its concurrency contract unchanged, on the port's own native engine.
 The constructor is the JAX client's: a device engine, or with none the
 host engine, which computes s . A from a host copy of A (`pub_mat_a`)
-with the native ternary matvec. Only setup is the port's: it builds one
-of the port's device engines on an explicit device. In ctr mode A is
+with the native ternary matvec. setup builds the same engines as the JAX
+client's setup: `device=False` (and "auto" on a machine without CUDA) the
+host engine, with A expanded on the host by core/prg.py; a torch device
+one of the port's device engines on it. In ctr mode A is
 generated on the device by the ctr Keccak kernel, and the engine is
 chosen by the JAX client's rule, with the same constant, so both
 packages pick the same engine: resident A planes (4 * m *
@@ -28,6 +30,7 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..core import hashing, matrix_io, prg
 from ..core.filter import BinaryFuseFilter, hash_batch
@@ -73,6 +76,33 @@ def uses_streaming(m: int) -> bool:
     """The engine rule: stream A once its resident planes would pass
     RESIDENT_PLANES_MAX_BYTES."""
     return 4 * m * LWE_DIMENSION > RESIDENT_PLANES_MAX_BYTES
+
+
+def _device_engine(seed: bytes, m: int, prg_mode: str, device: torch.device):
+    """(engine, its setup_stats["engine"] name, A's expansion stats) of a
+    device client. ctr mode: A from the ctr Keccak kernel, resident or
+    streamed by `uses_streaming`. Stream mode: the host XOF's row blocks
+    from a producer thread into resident planes."""
+    if prg_mode == "ctr":
+        if uses_streaming(m):
+            return StreamingQueryEngine(seed, m, device=device), "streaming", {}
+        return DeviceQueryEngine.from_seed_ctr(seed, m, device=device), "resident", {}
+    t0 = time.perf_counter()
+    xof: dict = {}
+    with contextlib.closing(prg.prefetch_iter(
+        _timed_blocks(prg.iter_row_blocks(LWE_DIMENSION, m, seed, STREAM_A_BLOCK_ROWS, mode="stream"), xof),
+        stats=xof,
+    )) as blocks:
+        engine = DeviceQueryEngine.from_host_rows(blocks, m, device, stats=xof)
+    # the JAX client expands A in one call, whose stats split the buffer's
+    # allocation (alloc_s) from the sponge (xof_s). Here A comes block by
+    # block from a producer thread into planes on the device: xof_s is the
+    # producer's wall inside the XOF squeezes (its blocks' host buffers
+    # included), alloc_s the allocation of the device plane buffer
+    return engine, "resident", {"a_expand_s": round(time.perf_counter() - t0, 2),
+                                "xof_cpu_s": round(xof.get("producer_cpu_s", 0.0), 2),
+                                "xof_s": round(xof.get("xof_s", 0.0), 2),
+                                "alloc_s": round(xof.get("alloc_s", 0.0), 2)}
 
 
 @dataclass
@@ -139,19 +169,28 @@ class Client:
         prepared_queries: int = 0,
         auto_refill: bool = False,
     ) -> "Client":
-        """Regenerate A from the seed on `device` ("cuda": the kernels,
-        AcceleratorError without CUDA; "cpu": the plain versions) and parse
-        the hint. `prg_mode` must match the server's. In ctr mode, past
-        RESIDENT_PLANES_MAX_BYTES of A planes the client streams A per
-        batch (`uses_streaming`). In stream mode the host XOF's A passes
-        the PIR_CLIENT_MAX_A_BYTES cap (KVDatabaseSizeTooLarge), as in the
-        JAX client, and lands in resident planes. A failure to build the engine
-        raises, with no fallback."""
+        """Regenerate A from the seed and parse the hint. `device` says where
+        A lives and s . A runs: False is the JAX client's host engine (A
+        expanded on the host, s . A in the native ternary matvec, no torch
+        tensor); "auto" is that engine on a machine without CUDA and
+        "cuda" with it; "cuda" or True the kernels (AcceleratorError
+        without CUDA); "cpu" the device engine on the plain versions, for
+        the tests. The choice is made once, before any work, and nothing
+        falls back. `prg_mode` must match the server's. In ctr mode, past
+        RESIDENT_PLANES_MAX_BYTES of A planes the device client streams A
+        per batch (`uses_streaming`). In stream mode the host XOF's A
+        passes the PIR_CLIENT_MAX_A_BYTES cap (KVDatabaseSizeTooLarge), as
+        in the JAX client, and lands in resident planes or in host memory.
+        A failure to build the engine raises."""
         if len(seed) != SEED_BYTE_LEN:
             raise ValueError(f"seed must be {SEED_BYTE_LEN} bytes")
         if prg_mode not in prg.PRG_MODES:
             raise ValueError(f"unknown prg mode {prg_mode!r}")
-        device = resolve_device(device)
+        # identity, not ==: 0 and torch.device("cpu") are not the JAX False
+        on_host = device is False or (isinstance(device, str) and device == "auto"
+                                      and not torch.cuda.is_available())
+        if not on_host:
+            device = resolve_device(device)
         wall0, cpu0 = time.perf_counter(), time.thread_time()
         ru0 = telemetry.thread_rusage()
         filt = BinaryFuseFilter.from_bytes(filter_param_bytes)
@@ -160,13 +199,7 @@ class Client:
             raise InvalidHintMatrix()
         m = filt.num_fingerprints
         stats: dict = {}
-        if prg_mode == "ctr":
-            streaming = uses_streaming(m)
-            if streaming:
-                engine = StreamingQueryEngine(seed, m, device=device)
-            else:
-                engine = DeviceQueryEngine.from_seed_ctr(seed, m, device=device)
-        else:
+        if prg_mode == "stream":
             # the filter params come off the wire: bound the expansion they
             # imply (default 64 GiB, past the 2^23-entry DB's ~63 GiB)
             a_bytes = 4 * LWE_DIMENSION * m
@@ -177,26 +210,20 @@ class Client:
                     f"expansion (> {max_a / 2**30:.0f} GiB cap; raise "
                     "PIR_CLIENT_MAX_A_BYTES or use prg_mode='ctr')"
                 )
-            streaming = False
+        if on_host:
+            # the JAX client's host engine: A in one host expansion (stream
+            # mode: one native XOF squeeze into one buffer, its stats
+            # alloc_s / xof_s; ctr mode: the host ctr words,
+            # fingerprint-major)
             t0 = time.perf_counter()
-            xof: dict = {}
-            with contextlib.closing(prg.prefetch_iter(
-                _timed_blocks(
-                    prg.iter_row_blocks(LWE_DIMENSION, m, seed, STREAM_A_BLOCK_ROWS, mode="stream"), xof),
-                stats=xof,
-            )) as blocks:
-                engine = DeviceQueryEngine.from_host_rows(blocks, m, device, stats=xof)
-            # the JAX client expands A in one call, whose stats split the
-            # buffer's allocation (alloc_s) from the sponge (xof_s). Here A
-            # comes block by block from a producer thread into planes on
-            # the device: xof_s is the producer's wall inside the XOF
-            # squeezes (its blocks' host buffers included), alloc_s the
-            # allocation of the device plane buffer
-            stats = {"a_expand_s": round(time.perf_counter() - t0, 2),
-                     "xof_cpu_s": round(xof.get("producer_cpu_s", 0.0), 2),
-                     "xof_s": round(xof.get("xof_s", 0.0), 2),
-                     "alloc_s": round(xof.get("alloc_s", 0.0), 2)}
-        client = cls(None, hint_mat_m, filt, engine, seed, prg_mode)
+            pub_mat_a = prg.expand_seed(LWE_DIMENSION, m, seed, mode=prg_mode, stats=stats)
+            stats["a_expand_s"] = round(time.perf_counter() - t0, 2)
+            client = cls(pub_mat_a, hint_mat_m, filt, seed=seed, prg_mode=prg_mode)
+            engine_name, plane_bytes = "host", 0
+        else:
+            engine, engine_name, stats = _device_engine(seed, m, prg_mode, device)
+            client = cls(None, hint_mat_m, filt, engine, seed, prg_mode)
+            plane_bytes = engine.device_bytes
         # user/sys and the fault count say where a slow setup went: sys- or
         # fault-dominated means kernel memory management, not XOF compute
         ru1 = telemetry.thread_rusage()
@@ -206,8 +233,8 @@ class Client:
             "cpu_s": round(time.thread_time() - cpu0, 2),
             "sys_s": round(ru1.ru_stime - ru0.ru_stime, 2),
             "minflt": ru1.ru_minflt - ru0.ru_minflt,
-            "engine": "streaming" if streaming else "resident",
-            "plane_bytes": engine.device_bytes,
+            "engine": engine_name,
+            "plane_bytes": plane_bytes,
         }
         if prepared_queries > 0:
             client.prepare_queries(prepared_queries)
@@ -700,8 +727,9 @@ class Client:
 
     @property
     def uses_device(self) -> bool:
-        """True when s . A runs in an engine on a torch device (every client
-        that setup builds); False for the host engine."""
+        """True when s . A runs in an engine on a torch device; False for
+        the host engine (the constructor with no engine, or
+        setup(device=False))."""
         return self._engine is not None
 
     @staticmethod

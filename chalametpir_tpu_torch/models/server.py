@@ -126,7 +126,9 @@ def resolve_device(device) -> torch.device:
     are accepted too: False is the CPU, True is CUDA, "auto" is CUDA when
     there is a CUDA device and the CPU otherwise. The choice is made here,
     once, before any work: a CUDA request on a machine without CUDA raises
-    instead of running on the CPU, and nothing that fails later falls back."""
+    instead of running on the CPU, and nothing that fails later falls back.
+    Client.setup takes False, and "auto" without CUDA, as the JAX client's
+    host engine before it calls this."""
     if device is False:
         device = "cpu"
     elif device is True:

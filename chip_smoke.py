@@ -34,8 +34,9 @@ launch counts set to 0 just before it and read just after:
   Server.setup (A folded into the hint by the respond kernel, block by
   block) and Client.setup, each under torch.profiler for the device's
   busy time, single and batched queries, Server.save and Server.load,
-  and the port's TCP server and client (9b), with the ctr Keccak kernel
-  never launched;
+  the port's TCP server and client, and the JAX client's host engine,
+  Client.setup(device=False), which must launch no kernel and allocate
+  nothing on the card (9b), with the ctr Keccak kernel never launched;
 - phases 10-11, the sharded server: the 2^20 DB of phase 4 through
   Server.setup(mesh=...) on a 1 x 4 mesh whose shards all lie on this card,
   hint, filter and responses equal to phase 4's byte for byte, the kernels
@@ -770,7 +771,32 @@ def main(argv=None) -> int:
             raise AssertionError("stream-mode query decoded a wrong value before save/load")
     log(f"  Server.save {save_s:.2f} s ({archive_bytes} B archive), Server.load {load_s:.2f} s; "
         f"4 responses byte-identical")
-    del client, server
+    # the reference's interop peer, as bench.py sets it up: the host engine
+    # (A in host memory, s . A by the native ternary matvec), which must
+    # launch no kernel and allocate nothing on the card
+    del client
+    torch.cuda.synchronize()
+    card_before = dict(kernels.LAUNCHES), torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    t0 = time.perf_counter()
+    host_client = Client.setup(pir_seed, hint, fparams, device=False)
+    host_setup_s = time.perf_counter() - t0
+    if host_client.uses_device or host_client.setup_stats["engine"] != "host":
+        raise AssertionError(f"Client.setup(device=False) built a device engine: {host_client.setup_stats}")
+    host_keys = probe[80:84]
+    host_client.prepare_queries(len(host_keys))
+    host_matvec_ms = host_client.prepare_stats["host_matvec_s"] / len(host_keys) * 1e3
+    host_queries = [query(host_client, key) for key in host_keys]
+    card_after = dict(kernels.LAUNCHES), torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    if card_after != card_before:
+        raise AssertionError(f"the host client used the card: launches and allocations {card_before} -> "
+                             f"{card_after}")
+    for key, qb in zip(host_keys, host_queries):
+        if host_client.process_response(key, server.respond(qb)) != db[key]:
+            raise AssertionError("the host client decoded a wrong value")
+    log(f"  host client (device=False): setup {host_setup_s:.2f} s, stats {host_client.setup_stats}; host matvec "
+        f"{host_matvec_ms:.1f} ms a query ({host_client.prepare_stats}); {len(host_keys)} keys round-tripped; "
+        f"no launch and no card allocation")
+    del host_client, server
     torch.cuda.empty_cache()
     tcp_keys = probe[84:]
     t0 = time.perf_counter()

@@ -122,20 +122,11 @@ DECIDED: dict[str, tuple[str, object, str]] = {
     "chalametpir_tpu.models.server:Server.setup[device='cuda']": (
         "behaviour", "tests/test_torch_slice.py::test_cuda_request_without_cuda_raises",
         "a CUDA request without CUDA raises AcceleratorError: no fallback to the CPU"),
-    "chalametpir_tpu.models.client:Client.setup[device=False]": (
-        "behaviour", "tests/test_torch_parity_repairs.py::test_jax_client_device_values_build_an_engine",
-        "False builds the engine on the CPU with torch's plain versions, not the JAX client's host "
-        "engine; the host engine is the constructor's, Client(pub_mat_a, hint, filt)"),
     "chalametpir_tpu.net.server:BatchDispatcher[pad_batches=None]": (
         "behaviour", "tests/test_torch_parity_repairs.py::test_pad_batches_is_accepted_and_off_by_default",
         "None pads nothing on any backend: the JAX package pads for its jax backend, which compiles "
         "per batch shape, and no backend of the port does"),
     # the JAX client-protocol suites through the port
-    "tests/test_query_pool.py::test_prepare_stats_attributes_the_batch": (
-        "protocol", "AssertionError",
-        "Client.setup(device=False) builds the CPU torch engine (see Client.setup[device=False]), so "
-        "prepare_stats has no host_matvec_s; test_host_client_is_the_jax_host_engine holds the "
-        "constructor's host engine to it"),
     "tests/test_prg_modes.py::test_ctr_device_matches_host": (
         "protocol", "ImportError",
         "ops.prg_jax is ops.prg_torch, and expand_fp_slab_device is expand_fp_slab with a device "

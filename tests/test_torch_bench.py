@@ -10,11 +10,13 @@ discipline of a run in a subprocess, and the refusals (no card, --log-n
 on the card, a cell that is not registered)."""
 
 import asyncio
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -35,6 +37,7 @@ SERVE = {"server_setup_s", "client_setup_s", "client_query_ms", "client_query_in
 E2E = {
     "ctr-2p20-a3": SERVE | {"respond_p95_ms", "respond_batch_qps", "restart_s"},
     "stream-2p20-a3": SERVE | {"respond_p90_ms"},
+    "stream-2p20-a3-host": SERVE | {"respond_p90_ms"},
     "ctr-2p21-a3-streaming": SERVE | {"respond_p90_ms"},
     "ctr-2p20-a3-tcp": {"server_setup_s", "client_setup_s", "serve_qps", "serve_ms", "serve_p96_ms"},
     "lo-2p23-b8": {"plane_gen_s", "respond_ms", "respond_p90_ms", "respond_batch_qps"},
@@ -49,6 +52,7 @@ CTR_KERNELS = {"k1_scan_q1", "k1_mma_q64", "k3_chunk", "ctr_fold_chunk"}
 KERNELS = {
     "ctr-2p20-a3": CTR_KERNELS,
     "stream-2p20-a3": {"k1_scan_q1", "stream_fold_block"},
+    "stream-2p20-a3-host": {"k1_scan_q1", "stream_fold_block"},  # the server's: the client launches nothing
     "ctr-2p21-a3-streaming": {"k1_scan_q1", "k3_chunk", "ctr_fold_chunk", "client_stream_batch"},
     "ctr-2p20-a3-tcp": set(),
     "lo-2p23-b8": {"k2_mma_q1", "k2_mma_q64"},
@@ -60,6 +64,7 @@ IN_RESPOND = {"device_idle_share", "device_idle_share_in_respond", "upload_q1_ms
 DEVICE = {
     "ctr-2p20-a3": IN_RESPOND | {"upload_q64_ms"},
     "stream-2p20-a3": IN_RESPOND,
+    "stream-2p20-a3-host": IN_RESPOND,
     "ctr-2p21-a3-streaming": IN_RESPOND,
     "ctr-2p20-a3-tcp": {"device_idle_share"},
     "lo-2p23-b8": IN_RESPOND | {"upload_q64_ms"},
@@ -68,7 +73,11 @@ DEVICE = {
     "ctr-2p22-a3-streaming": IN_RESPOND,
 }
 HOST = {name: {"setup_phases_s"} for name in E2E} | {"ctr-2p20-a3-tcp": {"setup_phases_s", "serve_batch_mean"},
+                                                    "stream-2p20-a3-host": {"setup_phases_s", "host_matvec_ms"},
                                                     "lo-2p23-b8": set()}
+# the library call's time beside each batch row (torch._int_mm of the batch's digits and the lo plane)
+for _name, _kernels in KERNELS.items():
+    DEVICE[_name] |= {f"{k}_int_mm_ms" for k in _kernels if k.endswith("_q64")}
 
 
 def _run(cell, seed: int):
@@ -79,6 +88,48 @@ def _run(cell, seed: int):
     assert all(v is not None for v, _ in rec.metrics.values())
     assert all(n == 0 for n in rec.launches.values()), rec.launches  # no kernel on the CPU
     return rec
+
+
+def test_host_cell_runs_the_jax_host_engine(records):
+    """stream-2p20-a3-host is stream-2p20-a3 with bench.py's interop client,
+    Client.setup(device=False): the host engine (A in host memory, s.A by
+    the native ternary matvec, prepare_stats' host_matvec_s), correct at
+    2^10 entries, with no client kernel row."""
+    host, stream = bench_torch.CELLS["stream-2p20-a3-host"], bench_torch.CELLS["stream-2p20-a3"]
+    assert host == dataclasses.replace(stream, name=host.name, why=host.why, source=host.source,
+                                       client_engine="host")
+    assert "bench.py:1431-1442" in host.source and "client_device=False" in host.source
+    rec = _record(records, host.name)
+    stats = rec.full["client_setup_stats"]
+    assert stats["engine"] == "host" and stats["plane_bytes"] == 0
+    assert {"a_expand_s", "alloc_s", "xof_s", "wall_s", "cpu_s", "sys_s", "minflt"} <= set(stats)
+    prep = rec.full["client_prepare_stats"]
+    assert "host_matvec_s" in prep and "readback_s" not in prep and prep["count"] == bench_torch.POOL
+    assert rec.layers["host_matvec_ms"][0] == pytest.approx(prep["host_matvec_s"] / prep["count"] * 1e3)
+    assert not any(name.startswith("client_") for name in rec.full["kernels"])
+    assert rec.full["host_client_card_use"] == {"launches": 0, "allocations": 0}
+
+
+def test_host_client_card_use_makes_the_run_incorrect(monkeypatch):
+    """A kernel launched or a card allocation made inside a host client's
+    call is counted and makes the run incorrect; a device client's calls,
+    and calls on the CPU, are not counted."""
+    uses = iter([(5, 7), (6, 7), (6, 7), (6, 9)])
+    monkeypatch.setattr(bench_torch, "card_use", lambda dev: next(uses))
+    card, cpu = types.SimpleNamespace(type="cuda"), types.SimpleNamespace(type="cpu")
+    checks = bench_torch.Checks()
+    for kind in checks.KINDS:
+        checks.count(kind, True)
+    for host, dev in ((False, card), (True, cpu)):
+        with checks.card_use_of(host, dev):
+            pass
+    assert checks.correct(checks.KINDS)
+    with checks.card_use_of(True, card):
+        pass
+    assert checks.host_card_use == {"launches": 1, "allocations": 0} and not checks.correct(checks.KINDS)
+    with checks.card_use_of(True, card):
+        pass
+    assert checks.host_card_use == {"launches": 1, "allocations": 2}
 
 
 def test_build_db_gives_bench_py_s_bytes():

@@ -48,9 +48,10 @@ def setup(rng):
 
 @pytest.mark.parametrize("device", [False, "auto"])
 def test_jax_client_device_values_build_an_engine(device, setup, tmp_path):
-    """`device=False` and the JAX client's default "auto" set up a client in
-    both packages; each decodes the same server's responses, also after a
-    save and a load with the same value."""
+    """`device=False` and the JAX client's default "auto" (on a machine
+    without CUDA) set up the JAX client's host engine in both packages;
+    each decodes the same server's responses, also after a save and a load
+    with the same value, which gives a host client again."""
     if device == "auto" and torch.cuda.is_available():
         pytest.skip("with CUDA \"auto\" is the card: see the cuda-marked case")
     import chalametpir_tpu
@@ -64,7 +65,9 @@ def test_jax_client_device_values_build_an_engine(device, setup, tmp_path):
         client.save(path)
         loaded = package.load(path, device=device)
         assert loaded.process_response(b"plum", server.respond(pending)) == b"purple"
-    assert Client.setup(seed, hint, fparams, device=device)._engine.device.type == "cpu"
+        for each in (client, loaded):
+            assert not each.uses_device and each._engine is None and each._pub_mat_a is not None
+    assert Client.setup(seed, hint, fparams, device=device).setup_stats["engine"] == "host"
 
 
 @pytest.mark.parametrize("device", [False, "auto"])
