@@ -168,6 +168,13 @@ CELLS = by_name(
          client_engine="streaming",
          source="bench.py:1384,1412 _run_scaling_point(22): 2^22 x 32 B keys x 1 kB values, arity 3, ctr, "
                 "b derived"),
+    Cell("ctr-2p23-a3-streaming", 23,
+         "the reference's largest DB as a real chain: an 8.39 M-key encode, b = 8, so the ctr setup folds 72 "
+         "chunks of a 10.87 GB lo plane (no hi plane) with K2 at Q = 1774 and respond is K2 at Q = 1; the "
+         "client's A (66.97 GB) streamed in 144 K3 slabs a batch; a 37.7 MB query; an operator with 8 M records",
+         client_engine="streaming",
+         source="bench.py:782 _run_scaling_point(23) (PIR_BENCH_SCALING_LOG_N=23, :1384-1385); BASELINE.json "
+                "configs[4]; 2^23 x 32 B x 1 kB, arity 3, ctr, b derived"),
 )
 
 # Keccak-p[1600,12] in 32-bit integer operations, counted from the round of
@@ -692,9 +699,10 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, c
     """CUDA-event medians of each kernel of the cell's path at its own
     shapes, each beside its bound, that bound's share of its time, the
     kernels one call launches, its plain version's time on the same
-    inputs and, for a batch of BATCH queries, the library call's:
-    torch._int_mm(qd, lo) of the batch's 4 * BATCH int8 query digit rows
-    and the lo plane (diag/scan_qd.py `int_mm_ms`; over a hi plane too it
+    inputs and, for a batch of BATCH queries and for each hint fold
+    (LIBRARY_ROWS), the library call's: torch._int_mm(qd, lo) of the
+    queries' (or A rows') int8 digit rows, 4 a row, and the lo plane they
+    are folded over (diag/scan_qd.py `int_mm_ms`; over a hi plane too it
     is the lo product alone); for a streaming client also one s.A batch
     of its engine, bounded by its Keccak work. A host client launches
     nothing and has no row. On the CPU the same rows, built and named,
@@ -739,13 +747,17 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, c
     def random_u32(q: int, n: int) -> torch.Tensor:
         return torch.from_numpy(rng.integers(0, 1 << 32, size=(q, n), dtype=np.uint32).view(np.int32)).to(dev)
 
+    def int_mm(queries: torch.Tensor, lo: torch.Tensor):
+        """The library call's timer over these queries' digit rows and `lo`."""
+        if dev.type != "cuda":
+            return None
+        qd = prepare_query_digits(queries, lo.shape[0])[0]
+        return lambda: int_mm_ms(qd, lo)
+
     k = "k1" if pack else "k2"
     for q in (1, BATCH) if cell.batches else (1,):
         queries = random_u32(q, m)
-        library = None
-        if q == BATCH and dev.type == "cuda":
-            qd = prepare_query_digits(queries, planes.lo.shape[0])[0]
-            library = lambda: int_mm_ms(qd, planes.lo)  # noqa: E731
+        library = int_mm(queries, planes.lo) if q == BATCH else None
         row(f"{k}_{kernels.choose_regime(q, pack)}_q{q}", lambda: respond_batch_packed(queries, planes), 20,
             lambda: bound_ms(q, m, c_pad, planes.device_bytes, b),
             lambda: respond_packed_ref(queries, planes.lo, planes.hi, b, c), library)
@@ -762,7 +774,7 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, c
         out = torch.zeros((STREAM_BLOCK_ROWS, c_pad), dtype=torch.int32, device=dev)
         row("stream_fold_block", lambda: respond_packed_core(block, planes.lo, planes.hi, b, c, out=out), 20,
             lambda: bound_ms(STREAM_BLOCK_ROWS, m, c_pad, planes.device_bytes, b),
-            lambda: respond_packed_ref(block, planes.lo, planes.hi, b, c))
+            lambda: respond_packed_ref(block, planes.lo, planes.hi, b, c), int_mm(block, planes.lo))
         return rows
     # the ctr setup's chunk: its K3 blocks, then its fold
     cc = min(_ctr_chunk_cols(m, M_ALIGN), planes.lo.shape[0])
@@ -775,8 +787,12 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, c
     chunk_bytes = lo_c.numel() + (hi_c.numel() if hi_c is not None else 0)
     row("ctr_fold_chunk", lambda: hint_fold_partial(slab.t(), lo_c, hi_c, b, c), 5,
         lambda: bound_ms(LWE_DIMENSION, cc, c_pad, chunk_bytes, b),
-        lambda: respond_packed_ref(slab.t(), lo_c, hi_c, b, c))
+        lambda: respond_packed_ref(slab.t(), lo_c, hi_c, b, c), int_mm(slab.t(), lo_c))
     return rows
+
+
+# the kernel rows besides the batches' that carry the library call's time
+LIBRARY_ROWS = ("ctr_fold_chunk", "stream_fold_block")
 
 
 def record_kernels(rec: Record, rows: dict) -> None:
@@ -784,7 +800,7 @@ def record_kernels(rec: Record, rows: dict) -> None:
     for name, r in rows.items():
         rec.layer(f"{name}_ms", r and r["ms"], "ms")
         rec.layer(f"{name}_of_bound", r and r["of_bound"], "1")
-        if name.endswith(f"_q{BATCH}"):
+        if name.endswith(f"_q{BATCH}") or name in LIBRARY_ROWS:
             rec.layer(f"{name}_int_mm_ms", r and r["library_ms"], "ms")
 
 
@@ -813,7 +829,7 @@ def set_up(cell: Cell, n: int, seed: int, dev, rec: Record, checks: Checks):
     """The cell's DB (untimed), then Server.setup and Client.setup, each
     timed by the host clock to a synchronised end. The client is set up on
     `dev`, or with device=False (the host engine) for a "host" cell."""
-    from chalametpir_tpu_torch import Client, Server
+    from chalametpir_tpu_torch import Client, Server, kernels
 
     t0 = time.perf_counter()
     db = build_db(n, cell.value_len, np.random.default_rng(seed))
@@ -822,10 +838,17 @@ def set_up(cell: Cell, n: int, seed: int, dev, rec: Record, checks: Checks):
     # the dict's millions of objects would be walked by every collection
     # of the setup's allocations; run() unfreezes when the cell is done
     gc.freeze()
+    before = dict(kernels.LAUNCHES)
     (server, hint, fparams), setup_s = timed(lambda: Server.setup(
-        pir_seed, db, arity=cell.arity, prg_mode=cell.prg_mode, rng=stream_of(seed, SETUP), device=dev), dev)
+        pir_seed, db, arity=cell.arity, prg_mode=cell.prg_mode, rng=stream_of(seed, SETUP),
+        mat_elem_bit_len=cell.b, device=dev), dev)
     rec.metric("server_setup_s", setup_s, "s")
     rec.full["server_setup_stats"] = server.setup_stats
+    rec.full["server_setup_launches"] = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    planes = server.planes
+    rec.full["geometry"] = {"b": planes.mat_elem_bit_len, "m": planes.num_rows, "c": planes.num_cols,
+                            "m_pad": planes.lo.shape[0], "c_pad": planes.lo.shape[1],
+                            "plane_bytes": planes.device_bytes, "hi_plane": planes.hi is not None}
     rec.full.update(setup_stats_fields(server.setup_stats))
     rec.layer("setup_phases_s", server.setup_stats.get("phases_s"), "s")
     log(f"server setup {setup_s:.3f} s, b={server.mat_elem_bit_len}, m={server.num_query_cols}, "

@@ -8,9 +8,14 @@ arity-3 DB (b = 9, lo + hi packed 8 to a byte) and of a 2^23-entry one
 (b = 8, lo only), made on the card from --seed, each regime answers Q
 random queries for each Q of QUERY_COUNTS. Every result is first held bit
 for bit against the plain version (`respond_packed_ref`), then timed with
-CUDA events (median of REPS calls). Beside them: the ctr hint fold's shape
-(the 1774 x 2^17 A slab read through its transpose, one 2^17-row chunk of
-the 2^20 planes) in the tensor-core regime. One JSON line per height, Q
+CUDA events (median of REPS calls). Beside them, at each height: the ctr
+hint fold's shape (the 1774 x 2^17 A slab read through its transpose, over
+one fold chunk of the planes as Server.setup cuts them: the first chunk of
+the 2^20 planes, the last of the 2^23 lo plane, whose view starts past
+2^32 bytes) in the tensor-core regime, held bit for bit against the plain
+version and timed beside it and beside the library call that computes
+its lo product, torch._int_mm of the slab's 4 x 1774 digit rows and the
+chunk (scan_qd.int_mm_ms). One JSON line per height, Q
 and regime: ms, GB/s of planes read, and `bound_ms`, the least time of
 the same work on an H100: the planes, queries and output moved once at
 the card's memory rate, or the 7 (b > 8) or 4 int8 digit rows per query
@@ -31,12 +36,16 @@ import sys
 import torch
 
 from .. import kernels
-from ..ops.respond_packed import hint_fold_partial, pack_geometry, respond_packed_ref
-from .scan_qd import Geometry, copy_gbps, cuda_ms, synthetic_planes
+from ..models.server import _ctr_chunk_cols
+from ..ops.digits import prepare_query_digits
+from ..ops.respond_packed import M_ALIGN, hint_fold_partial, pack_geometry, respond_packed_ref
+from .scan_qd import Geometry, copy_gbps, cuda_ms, int_mm_ms, synthetic_planes
 
 HEIGHTS = (20, 23)
 QUERY_COUNTS = (1, 2, 3, 4, 5, 8, 16, 64)
-FOLD_ROWS, LWE_ROWS = 1 << 17, 1774
+LWE_ROWS = 1774
+# the fold chunk timed at each height: the setup's first, or its last
+LAST_FOLD_CHUNK = {20: False, 23: True}
 REPS = 20
 # NVIDIA's data sheet, H100 SXM, dense (no sparsity), at the 700 W limit:
 # 3.35 TB/s of HBM3 and 1,979 int8 TOP/s on the tensor cores
@@ -65,6 +74,14 @@ def bound_ms(nq: int, m: int, c_pad: int, plane_bytes: int, b: int,
     by_bytes = moved / bytes_per_s * 1e3
     by_ops = 2 * digit_rows * nq * m * c_pad / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def fold_chunk(geo: Geometry, last: bool) -> tuple[int, int]:
+    """(first row, rows) of the first or the last chunk that the ctr setup
+    (models/server.py _setup_ctr_pipelined) folds over planes of `geo`."""
+    cc = _ctr_chunk_cols(geo.m, M_ALIGN)
+    r0 = (-(-geo.m // cc) - 1) * cc if last else 0
+    return r0, min(cc, geo.m_pad - r0)
 
 
 def _launch(queries, db, regime):
@@ -109,20 +126,25 @@ def run(seed: int = 0, log=print) -> dict:
                 emit({"height": log_n, "b": geo.b, "q": nq, "regime": regime, "ms": ms,
                       "GBps": db.device_bytes / ms / 1e6, **bound})
             del queries, want
-        if log_n == 20:
-            rows_ = min(FOLD_ROWS, geo.m_pad)
-            lo, hi = db.lo[:rows_], db.hi[:rows_] if db.hi is not None else None
-            slab = torch.randint(-(1 << 31), 1 << 31, (rows_, LWE_ROWS), dtype=torch.int32,
-                                 device=device, generator=gen)
-            want = respond_packed_ref(slab.t(), lo, hi, geo.b, geo.cols)
-            if not torch.equal(hint_fold_partial(slab.t(), lo, hi, geo.b, geo.cols), want):
-                raise AssertionError("the hint fold differs from plain")
-            plane_bytes = lo.numel() + (hi.numel() if hi is not None else 0)
-            bound = bounds(LWE_ROWS, rows_, geo.c_pad, plane_bytes, geo.b)
-            ms = cuda_ms(lambda: hint_fold_partial(slab.t(), lo, hi, geo.b, geo.cols), 5)
-            emit({"height": log_n, "b": geo.b, "q": LWE_ROWS, "rows": rows_, "regime": "mma",
-                  "shape": "ctr hint fold chunk", "ms": ms, **bound})
-            del lo, hi, slab, want
+        r0, rows_ = fold_chunk(geo, LAST_FOLD_CHUNK[log_n])
+        lo = db.lo[r0 : r0 + rows_]
+        hi = db.hi[r0 : r0 + rows_] if db.hi is not None else None
+        slab = torch.randint(-(1 << 31), 1 << 31, (rows_, LWE_ROWS), dtype=torch.int32,
+                             device=device, generator=gen)
+        fold = lambda: hint_fold_partial(slab.t(), lo, hi, geo.b, geo.cols)  # noqa: E731
+        plain = lambda: respond_packed_ref(slab.t(), lo, hi, geo.b, geo.cols)  # noqa: E731
+        if not torch.equal(fold(), plain()):
+            raise AssertionError(f"the hint fold differs from plain at 2^{log_n}, rows {r0}..{r0 + rows_}")
+        plane_bytes = lo.numel() + (hi.numel() if hi is not None else 0)
+        bound = bounds(LWE_ROWS, rows_, geo.c_pad, plane_bytes, geo.b)
+        ms, plain_ms = cuda_ms(fold, 5), cuda_ms(plain, 2)
+        qd = prepare_query_digits(slab.t(), rows_)[0]
+        library_ms = int_mm_ms(qd, lo)
+        emit({"height": log_n, "b": geo.b, "q": LWE_ROWS, "rows": rows_, "first_row": r0,
+              "offset_bytes": r0 * geo.c_pad, "regime": kernels.choose_regime(LWE_ROWS, pack_geometry(
+                  geo.b, geo.c_pad)[0]), "shape": "ctr hint fold chunk", "ms": ms, "plain_ms": plain_ms,
+              "int_mm_ms": library_ms, **bound})
+        del lo, hi, slab, qd
         del db
         torch.cuda.empty_cache()
     return {"copy_GBps": rate, "int8_TOPS": tops, "rows": rows}

@@ -17,7 +17,10 @@ launch counts set to 0 just before it and read just after:
   (the reference's headline configuration), every decoded value checked;
   then each kernel timed at the path's shapes beside its plain version and
   its bound, and the two respond regimes side by side from one query to
-  64 (diag/respond_regimes.py);
+  64, and the ctr hint fold over the first chunk of the 2^20 planes and
+  the last chunk of the 2^23 lo plane (b = 8, K2; the view starts past
+  2^32 bytes) held bit for bit against its plain version and timed beside
+  it and torch._int_mm (diag/respond_regimes.py);
 - phases 6-7, the digit-layout respond kernel: against its plain version
   at small shapes, then the scan diagnostic
   (chalametpir_tpu_torch.diag.scan_qd) at the planes of 2^20-2^23 entries,
@@ -485,7 +488,8 @@ def main(argv=None) -> int:
         f"{respond_regimes.bound_ms(*shape, copy_rate * 1e9, int8_rate * 1e12)[0]:.3f} ms")
     del planes, queries, a_slab, lo_c, hi_c, k_fn, p_fn, fold, fold_ref
     torch.cuda.empty_cache()
-    # both regimes side by side at 2^20 (b = 9) and 2^23 (b = 8): the crossover
+    # both regimes side by side at 2^20 (b = 9) and 2^23 (b = 8): the crossover;
+    # the fold over the 2^23 lo plane's last chunk, past 2^32 bytes
     regimes = respond_regimes.run(seed=args.seed, log=lambda line: log(f"  {line}"))
     del regimes
     phase_done("phase 5")

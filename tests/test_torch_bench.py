@@ -1,8 +1,8 @@
 """bench_torch.py, the port's benchmark, on the CPU at 2^10 entries
 (--device cpu --log-n 10): its DB against bench.py's, every cell to a
 correct end with every metric named, in its record and its last line, the
-full-size geometry of the 2^20 arity-4 and 2^22 cells (computed, never
-built), a response corrupted in one word caught, a TCP connection dropped or
+full-size geometry of the 2^20 arity-4, 2^22 and 2^23 cells (computed,
+never built), the 2^23 cell's pack-0 chain at its full-size b = 8, a response corrupted in one word caught, a TCP connection dropped or
 stalled caught, the warm-up at the cell's arity, the sampled checks
 against the port's numpy oracle on the full product, their host
 reference against the JAX package's encode and PRG, the output
@@ -44,6 +44,7 @@ E2E = {
     "ctr-2p16-a4": SERVE | {"respond_p95_ms", "respond_batch_qps", "restart_s"},
     "ctr-2p20-a4": SERVE | {"respond_p95_ms", "respond_batch_qps", "restart_s"},
     "ctr-2p22-a3-streaming": SERVE | {"respond_p90_ms"},
+    "ctr-2p23-a3-streaming": SERVE | {"respond_p90_ms"},
 }
 # the per-layer metrics of each cell: the timed kernels (each as _ms and
 # _of_bound) and the device's idle shares and uploads, null on the CPU;
@@ -59,6 +60,7 @@ KERNELS = {
     "ctr-2p16-a4": CTR_KERNELS,
     "ctr-2p20-a4": CTR_KERNELS,
     "ctr-2p22-a3-streaming": {"k1_scan_q1", "k3_chunk", "ctr_fold_chunk", "client_stream_batch"},
+    "ctr-2p23-a3-streaming": {"k2_mma_q1", "k3_chunk", "ctr_fold_chunk", "client_stream_batch"},
 }
 IN_RESPOND = {"device_idle_share", "device_idle_share_in_respond", "upload_q1_ms"}
 DEVICE = {
@@ -71,13 +73,21 @@ DEVICE = {
     "ctr-2p16-a4": IN_RESPOND | {"upload_q64_ms"},
     "ctr-2p20-a4": IN_RESPOND | {"upload_q64_ms"},
     "ctr-2p22-a3-streaming": IN_RESPOND,
+    "ctr-2p23-a3-streaming": IN_RESPOND,
 }
 HOST = {name: {"setup_phases_s"} for name in E2E} | {"ctr-2p20-a3-tcp": {"setup_phases_s", "serve_batch_mean"},
                                                     "stream-2p20-a3-host": {"setup_phases_s", "host_matvec_ms"},
                                                     "lo-2p23-b8": set()}
-# the library call's time beside each batch row (torch._int_mm of the batch's digits and the lo plane)
+# the library call's time beside each batch row and each hint fold row
+# (torch._int_mm of the queries' or A rows' digits and the lo plane)
 for _name, _kernels in KERNELS.items():
-    DEVICE[_name] |= {f"{k}_int_mm_ms" for k in _kernels if k.endswith("_q64")}
+    # a new set: several cells share IN_RESPOND's
+    DEVICE[_name] = DEVICE[_name] | {f"{k}_int_mm_ms" for k in _kernels
+                                     if k.endswith("_q64") or k in bench_torch.LIBRARY_ROWS}
+# the cells' element width at 2^LOG_N entries where it is not the derived
+# one: the 2^23 cell's full-size b = 8 (pack 0, K2 and no hi plane), which
+# 2^10 entries would not derive (b = 12)
+CPU_B = {"ctr-2p23-a3-streaming": 8}
 
 
 def _run(cell, seed: int):
@@ -152,6 +162,8 @@ def _record(records: dict, name: str):
 
     if name not in records:
         cell = bench_torch.CELLS[name]
+        if name in CPU_B:
+            cell = dataclasses.replace(cell, b=CPU_B[name])
         with pytest.MonkeyPatch.context() as patch:
             if cell.client_engine == "streaming":
                 # every query then regenerates A through the plain Keccak: the file's longest case
@@ -194,45 +206,71 @@ def test_last_line_holds_the_cells_metrics(name, records):
     assert set(last["launches"]) == set(kernels.LAUNCHES)
 
 
-# each cell of bench.py's 2^20 arity-4 row and 2^22 scaling point at its
-# full size: (arity, log2 entries, m, engine, closed-loop responds, batches,
-# restart)
+# each cell of bench.py's 2^20 arity-4 row and scaling points at its full
+# size: (arity, log2 entries, m, engine, closed-loop responds, batches,
+# restart), (b, c, c_pad, pack, plane GB, A GB, ctr setup chunks, the
+# streaming client's K3 slabs a batch)
 FULL_SIZE = {
-    "ctr-2p20-a4": (4, 20, 1_130_496, "resident", 200, 20, True),
-    "ctr-2p22-a3-streaming": (3, 22, 4_718_592, "streaming", 100, 0, False),
+    "ctr-2p20-a4": ((4, 20, 1_130_496, "resident", 200, 20, True), (9, 940, 1024, 8, 1.30, 8.02, 9, None)),
+    "ctr-2p22-a3-streaming": ((3, 22, 4_718_592, "streaming", 100, 0, False), (9, 940, 1024, 8, 5.44, 33.48, 36, 72)),
+    "ctr-2p23-a3-streaming": ((3, 23, 9_437_184, "streaming", 100, 0, False),
+                              (8, 1057, 1152, 0, 10.87, 66.97, 72, 144)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(FULL_SIZE))
 def test_cell_holds_its_full_size_geometry(name):
     """The cell's fields, and the geometry its full-size DB gets, computed
-    without building it: m (the reference's query is 8 + 4m bytes), b = 9,
-    c = 940 in 1024 padded columns, the planes' bytes, and the side of
-    RESIDENT_PLANES_MAX_BYTES that the client's A falls on."""
+    without building it: m (the reference's query is 8 + 4m bytes), its
+    own b, c in c_pad padded columns, the pack (0: a lo plane alone), the
+    planes' bytes, whether the last ctr fold chunk's view starts past 2^32
+    bytes, the side of RESIDENT_PLANES_MAX_BYTES that the client's A falls
+    on, the setup's fold chunks and the streaming client's slabs."""
     from chalametpir_tpu_torch.core import codec
     from chalametpir_tpu_torch.core.filter import filter_geometry
     from chalametpir_tpu_torch.models import client as port_client
+    from chalametpir_tpu_torch.models.server import _ctr_chunk_cols
+    from chalametpir_tpu_torch.ops.client_device import StreamingQueryEngine
     from chalametpir_tpu_torch.ops.respond_packed import LANE, M_ALIGN, pack_geometry
 
-    arity, log_n, m, engine, responds, batches, restart = FULL_SIZE[name]
+    (arity, log_n, m, engine, responds, batches, restart), (b, c, c_pad, pack, planes_gb, a_gb, chunks, slabs) = (
+        FULL_SIZE[name])
     cell = bench_torch.CELLS[name]
     assert (cell.arity, cell.log_n, cell.client_engine, cell.responds, cell.batches, cell.restart) == (
         arity, log_n, engine, responds, batches, restart)
     assert (cell.prg_mode, cell.traffic, cell.value_len, cell.b) == ("ctr", "serve", 1024, None)
     assert filter_geometry(arity, 1 << log_n)[2] == m
-    b = find_mat_elem_bit_len(1 << log_n)
-    c = codec.encoded_row_width(cell.value_len, b)
-    c_pad = -(-c // LANE) * LANE
-    assert (b, c, c_pad) == (9, 940, 1024)
-    pack, _, pc = pack_geometry(b, c_pad)
-    lo_bytes = -(-m // M_ALIGN) * M_ALIGN * c_pad
-    planes_gb = (lo_bytes + lo_bytes // c_pad * pc) / 1e9
-    assert pack == 8 and planes_gb == pytest.approx({20: 1.30, 22: 5.44}[log_n], abs=0.01)
-    assert (lo_bytes > 1 << 32) == (log_n == 22)  # the lo plane's offsets pass 32 bits
+    assert find_mat_elem_bit_len(1 << log_n) == b
+    assert codec.encoded_row_width(cell.value_len, b) == c and -(-c // LANE) * LANE == c_pad
+    got_pack, _, pc = pack_geometry(b, c_pad)
+    m_pad = -(-m // M_ALIGN) * M_ALIGN
+    lo_bytes = m_pad * c_pad
+    assert got_pack == pack and (lo_bytes + (m_pad * pc if pack else 0)) / 1e9 == pytest.approx(planes_gb, abs=0.01)
+    cc = _ctr_chunk_cols(m, M_ALIGN)
+    assert -(-m // cc) == chunks
+    # the last fold chunk's view, and so every row past it, lies past 2^32 bytes of the lo plane
+    assert ((m_pad - cc) * c_pad > 1 << 32) == (log_n >= 22)
     a_bytes = 4 * m * LWE_DIMENSION
     assert (a_bytes > port_client.RESIDENT_PLANES_MAX_BYTES) == (engine == "streaming")
     assert port_client.uses_streaming(m) == (engine == "streaming")
-    assert a_bytes / 1e9 == pytest.approx({20: 8.02, 22: 33.48}[log_n], abs=0.01)
+    assert a_bytes / 1e9 == pytest.approx(a_gb, abs=0.01)
+    if slabs is not None:
+        step = StreamingQueryEngine(bytes(32), m, device="cpu").cols_per_step
+        assert len(range(0, -(-m // 8) * 8, step)) == slabs
+
+
+def test_2p23_cell_runs_the_pack0_chain(records):
+    """ctr-2p23-a3-streaming at 2^10 entries and its full-size b = 8: the
+    server's planes are a lo plane alone (so its ctr fold and respond are
+    K2's work), the client streams A (RESIDENT_PLANES_MAX_BYTES patched to
+    0), and every check passes, the hint's against the host PRG included."""
+    rec = _record(records, "ctr-2p23-a3-streaming")
+    geo = rec.full["geometry"]
+    assert (geo["b"], geo["hi_plane"]) == (8, False) and geo["plane_bytes"] == geo["m_pad"] * geo["c_pad"]
+    assert rec.full["client_setup_stats"]["engine"] == "streaming"
+    assert rec.full["checks"]["hint"] == [bench_torch.SAMPLED_HINT, 0]
+    assert {"k2_mma_q1", "ctr_fold_chunk", "client_stream_batch"} <= set(rec.full["kernels"])
+    assert rec.full["server_setup_launches"] == {}  # the CPU runs the plain versions
 
 
 @pytest.mark.parametrize("name", ["ctr-2p22-a3", "CTR-2P20-A3", ""])

@@ -190,6 +190,22 @@ def test_respond_bound_is_the_cards_peak(nq, by):
     assert ms == pytest.approx(max(by_bytes, by_ops), rel=1e-12)
 
 
+@pytest.mark.parametrize("log_n, first_row, pack", [(20, 0, 8), (23, 71 << 17, 0)])
+def test_respond_regimes_folds_the_setups_chunk(log_n, first_row, pack):
+    """The diagnostic's fold row takes a chunk as the ctr setup cuts it: the
+    first of the 2^20 planes (b = 9, a hi plane), the last of the 2^23 lo
+    plane (b = 8, pack 0: K2's work), whose view starts past 2^32 bytes."""
+    from chalametpir_tpu_torch.diag.respond_regimes import HEIGHTS, LAST_FOLD_CHUNK, fold_chunk
+    from chalametpir_tpu_torch.diag.scan_qd import Geometry
+
+    assert set(LAST_FOLD_CHUNK) == set(HEIGHTS)
+    geo = Geometry.of(log_n)
+    r0, rows = fold_chunk(geo, LAST_FOLD_CHUNK[log_n])
+    assert (r0, rows) == (first_row, 1 << 17) and r0 + rows <= geo.m_pad
+    assert rp.pack_geometry(geo.b, geo.c_pad)[0] == pack
+    assert (r0 * geo.c_pad > 1 << 32) == (log_n == 23)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q", [1, 2, 5, 8, 15, 16, 17, 64, 1774])
 @pytest.mark.parametrize("b", BITS)
