@@ -1,0 +1,7 @@
+"""respond_ms: the median host wall of server.respond in the window's rounds."""
+
+from pirbench import readers
+
+
+def read(rec):
+    return readers.median_wall_ms(rec, "pirbench.respond")
