@@ -125,10 +125,11 @@ def from_kv_database_streaming(
 
     num_fp = filt.num_fingerprints
     n_chunks = -(-num_fp // chunk_rows)
-    expected = _native.assemble_plan(
-        reverse_order, reverse_h, filt.arity, filt.segment_length,
-        filt.segment_count_length, chunk_rows, n_chunks,
-    )
+    with telemetry.span("encode_stream.plan"):
+        expected = _native.assemble_plan(
+            reverse_order, reverse_h, filt.arity, filt.segment_length,
+            filt.segment_count_length, chunk_rows, n_chunks,
+        )
     progress = np.zeros(n_chunks, np.int64)
     # rows are padded to whole chunks (zeros) so every chunk the consumer
     # packs/uploads has the same shape — one compiled device program.

@@ -392,36 +392,42 @@ class Client:
         query that overflows is discarded, preserving the reference's
         fresh-randomness retry contract."""
         key = bytes(key)
-        token = self._reserve_pending(key)
-        try:
-            entry = self._pop_prepared()
-            if entry is not None:
-                return self._finalize_prepared(key, entry)
-            return self._query_inline_reserved(key)
-        except BaseException:
-            self._release_reservation(key, token)
-            raise
+        with telemetry.span("client.query"):
+            token = self._reserve_pending(key)
+            try:
+                entry = self._pop_prepared()
+                if entry is not None:
+                    return self._finalize_prepared(key, entry)
+                return self._query_inline_reserved(key)
+            except BaseException:
+                self._release_reservation(key, token)
+                raise
 
     def query_inline(self, key: bytes) -> bytes:
         """query() but always computing s.A inline (never from the
         preprocessing pool) — the reference's lazy evaluation order."""
         key = bytes(key)
-        token = self._reserve_pending(key)
-        try:
-            return self._query_inline_reserved(key)
-        except BaseException:
-            self._release_reservation(key, token)
-            raise
+        with telemetry.span("client.query"):
+            token = self._reserve_pending(key)
+            try:
+                return self._query_inline_reserved(key)
+            except BaseException:
+                self._release_reservation(key, token)
+                raise
 
     def _query_inline_reserved(self, key: bytes) -> bytes:
         """Inline s.A for a key the caller has already reserved."""
-        secret_s = self._sample_ternary(LWE_DIMENSION)
-        if self._engine is None:
-            return self._finalize_query(key, secret_s, self._ternary_matvec(secret_s, self._pub_mat_a))
+        with telemetry.span("client.query.secret"):
+            secret_s = self._sample_ternary(LWE_DIMENSION)
         # dispatch s.A on the device, overlap the host-side error sampling
-        # and unblinding matvec with the device dot + readback
-        b_dev = self._engine.matvec_batch_async(secret_s[None, :])
-        return self._finalize_query(key, secret_s, b_dev)
+        # and unblinding matvec with the device dot + readback (the host
+        # engine computes it here, whole)
+        with telemetry.span("client.query.launch"):
+            if self._engine is None:
+                b_base = self._ternary_matvec(secret_s, self._pub_mat_a)
+            else:
+                b_base = self._engine.matvec_batch_async(secret_s[None, :])
+        return self._finalize_query(key, secret_s, b_base)
 
     def _add_query_indicator(self, query_b: np.ndarray, key: bytes) -> None:
         """Add Δ = ⌊2^32/2^b⌋ at the key's filter rows, in place
@@ -450,9 +456,11 @@ class Client:
         consumed either way; on overflow the caller retries and a fresh
         entry (or the inline path) supplies fresh randomness."""
         query_b, vec_c = entry
-        self._add_query_indicator(query_b, key)
+        with telemetry.span("client.query.indicator"):
+            self._add_query_indicator(query_b, key)
         self._pending[key] = Query(vec_c=vec_c)
-        return matrix_io.matrix_to_bytes(query_b[None, :])
+        with telemetry.span("client.query.serialize"):
+            return matrix_io.matrix_to_bytes(query_b[None, :])
 
     def query_batch(self, keys: list[bytes]) -> list[bytes]:
         """Build queries for several keys at once. Preprocessed pool
@@ -473,72 +481,75 @@ class Client:
         keys = [bytes(k) for k in keys]
         if len(set(keys)) != len(keys):
             raise PendingQueryExistsForKey()
-        tokens: dict[bytes, object] = {}
-        try:
-            for key in keys:
-                tokens[key] = self._reserve_pending(key)
-        except PendingQueryExistsForKey:
-            for k, t in tokens.items():
-                self._release_reservation(k, t)
-            raise
+        with telemetry.span("client.query", queries=len(keys)):
+            tokens: dict[bytes, object] = {}
+            try:
+                for key in keys:
+                    tokens[key] = self._reserve_pending(key)
+            except PendingQueryExistsForKey:
+                for k, t in tokens.items():
+                    self._release_reservation(k, t)
+                raise
 
-        # everything from here runs with the keys reserved, so the unwind
-        # below must cover it ALL — a sampling/engine failure outside the
-        # try would leak the reservations and leave the keys permanently
-        # unqueryable for this client's lifetime
-        out = []
-        try:
-            n_pool_target = len(keys)
-            pool_entries = []
-            with self._prepared_lock:
-                while self._prepared and len(pool_entries) < n_pool_target:
-                    pool_entries.append(self._prepared.pop())
-                self._maybe_spawn_refill_locked()
-            fresh_keys = keys[len(pool_entries) :]
-            if fresh_keys:
-                codes = np.stack(
-                    [self._sample_ternary(LWE_DIMENSION) for _ in fresh_keys]
-                )
-                if self._engine is None:
-                    b_batch = [self._ternary_matvec(c, self._pub_mat_a) for c in codes]
-                else:
-                    # dispatch without waiting and hand each key its (1,
-                    # m_pad) device row: _finalize_query runs the host-side
-                    # work (error sampling, the s . M matvec) BEFORE
-                    # materialising it, overlapping the device dot +
-                    # readback like the inline and prepare paths do
-                    b_dev = self._engine.matvec_batch_async(codes)
-                    b_batch = [b_dev[j : j + 1] for j in range(len(fresh_keys))]
-            for i, key in enumerate(keys):
-                try:
-                    if i < len(pool_entries):
-                        out.append(self._finalize_prepared(key, pool_entries[i]))
-                    else:
-                        j = i - len(pool_entries)
-                        out.append(self._finalize_query(key, codes[j], b_batch[j]))
-                except ArithmeticOverflowAddingQueryIndicator:
-                    for attempt in range(SERVER_SETUP_MAX_ATTEMPT_COUNT):
-                        try:
-                            # the key is still reserved by this batch (the
-                            # overflow raise left the token in place)
-                            out.append(self._query_inline_reserved(key))
-                            break
-                        except ArithmeticOverflowAddingQueryIndicator:
-                            continue
-                    else:
-                        raise
-        except BaseException:
-            # a key exhausted the retry cap (or anything else blew up):
-            # the caller never receives `out`, so keys finalized earlier
-            # in this batch would be stuck pending with their query bytes
-            # lost, and unfinalized keys still hold reservations. Unwind
-            # both so the whole batch can simply be retried. (Consumed
-            # pool entries stay consumed — that is the documented
-            # contract.)
-            for k in keys:
-                self._pending.pop(k, None)
-            raise
-        return out
+            # everything from here runs with the keys reserved, so the unwind
+            # below must cover it ALL — a sampling/engine failure outside the
+            # try would leak the reservations and leave the keys permanently
+            # unqueryable for this client's lifetime
+            out = []
+            try:
+                n_pool_target = len(keys)
+                pool_entries = []
+                with self._prepared_lock:
+                    while self._prepared and len(pool_entries) < n_pool_target:
+                        pool_entries.append(self._prepared.pop())
+                    self._maybe_spawn_refill_locked()
+                fresh_keys = keys[len(pool_entries) :]
+                if fresh_keys:
+                    with telemetry.span("client.query.secret"):
+                        codes = np.stack(
+                            [self._sample_ternary(LWE_DIMENSION) for _ in fresh_keys]
+                        )
+                    with telemetry.span("client.query.launch"):
+                        if self._engine is None:
+                            b_batch = [self._ternary_matvec(c, self._pub_mat_a) for c in codes]
+                        else:
+                            # dispatch without waiting and hand each key its (1,
+                            # m_pad) device row: _finalize_query runs the host-side
+                            # work (error sampling, the s . M matvec) BEFORE
+                            # materialising it, overlapping the device dot +
+                            # readback like the inline and prepare paths do
+                            b_dev = self._engine.matvec_batch_async(codes)
+                            b_batch = [b_dev[j : j + 1] for j in range(len(fresh_keys))]
+                for i, key in enumerate(keys):
+                    try:
+                        if i < len(pool_entries):
+                            out.append(self._finalize_prepared(key, pool_entries[i]))
+                        else:
+                            j = i - len(pool_entries)
+                            out.append(self._finalize_query(key, codes[j], b_batch[j]))
+                    except ArithmeticOverflowAddingQueryIndicator:
+                        for attempt in range(SERVER_SETUP_MAX_ATTEMPT_COUNT):
+                            try:
+                                # the key is still reserved by this batch (the
+                                # overflow raise left the token in place)
+                                out.append(self._query_inline_reserved(key))
+                                break
+                            except ArithmeticOverflowAddingQueryIndicator:
+                                continue
+                        else:
+                            raise
+            except BaseException:
+                # a key exhausted the retry cap (or anything else blew up):
+                # the caller never receives `out`, so keys finalized earlier
+                # in this batch would be stuck pending with their query bytes
+                # lost, and unfinalized keys still hold reservations. Unwind
+                # both so the whole batch can simply be retried. (Consumed
+                # pool entries stay consumed — that is the documented
+                # contract.)
+                for k in keys:
+                    self._pending.pop(k, None)
+                raise
+            return out
 
     def _finalize_query(self, key: bytes, secret_s: np.ndarray, b_base) -> bytes:
         """Add the error vector and the query indicator, record the
@@ -551,17 +562,23 @@ class Client:
         sampling, the s.M matvec, key hashing) runs before it is
         materialised, so it overlaps the device dot and readback."""
         m = self._filter.num_fingerprints
-        error_e = self._sample_ternary_u32(m)
-        vec_c = self._ternary_matvec(secret_s, self._hint_mat_m)
+        with telemetry.span("client.query.error"):
+            error_e = self._sample_ternary_u32(m)
+        with telemetry.span("client.query.unblind"):
+            vec_c = self._ternary_matvec(secret_s, self._hint_mat_m)
 
-        b_host = np.asarray(b_base)
+        with telemetry.span("client.query.wait") as wait:
+            b_host = np.asarray(b_base)
+            wait.set(bytes=b_host.nbytes)
         if b_host.ndim == 2:  # a device result: (1, m_pad)
             b_host = b_host[0, :m]
-        query_b = b_host.astype(np.uint32) + error_e
-        self._add_query_indicator(query_b, key)
+        with telemetry.span("client.query.indicator"):
+            query_b = b_host.astype(np.uint32) + error_e
+            self._add_query_indicator(query_b, key)
 
         self._pending[key] = Query(vec_c=vec_c)
-        return matrix_io.matrix_to_bytes(query_b[None, :])
+        with telemetry.span("client.query.serialize"):
+            return matrix_io.matrix_to_bytes(query_b[None, :])
 
     # -- response ------------------------------------------------------------
 
@@ -585,10 +602,11 @@ class Client:
         out = getattr(self._resp_out, "buf", None)
         if out is None or out.shape[0] < out_len:
             out = self._resp_out.buf = np.empty(out_len, np.uint8)
-        result = _native.client_process_response_wire(
-            key, self._filter.seed, response_bytes,
-            pending.c_ptr, cols, b, out.ctypes.data,
-        )
+        with telemetry.span("client.process_response"):
+            result = _native.client_process_response_wire(
+                key, self._filter.seed, response_bytes,
+                pending.c_ptr, cols, b, out.ctypes.data,
+            )
         if result == -3:
             # malformed response: the pending query survives, exactly
             # like the reference's early-return (client.rs:210-217)

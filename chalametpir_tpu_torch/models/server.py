@@ -536,10 +536,12 @@ class Server:
         _, _, num_fp = filter_geometry(arity, len(db))
         cc = _ctr_chunk_cols(num_fp, M_ALIGN)
         worker_stats: dict = {}
+        t0 = time.perf_counter()
         with telemetry.span("server_setup.encode_stream", entries=len(db), b=bit_len, chunk=cc):
             mat16, filt, chunks = encode_db.from_kv_database_streaming(
                 db, arity, bit_len, cc, SERVER_SETUP_MAX_ATTEMPT_COUNT, rng, stats=worker_stats
             )
+        encode_s = time.perf_counter() - t0
         m = filt.num_fingerprints
         m_pad, cols = mat16.shape
         c_pad = -(-cols // LANE) * LANE
@@ -551,29 +553,37 @@ class Server:
         hint = torch.zeros((LWE_DIMENSION, c_pad), dtype=torch.int32, device=device)
         seed_words = prg_torch.seed_to_words(seed)
 
-        phase = dict(wait=0.0, pack=0.0, pack_cpu=0.0, put=0.0, dispatch=0.0, drain=0.0)
+        phase = dict(encode=encode_s, wait=0.0, pack=0.0, pack_cpu=0.0, put=0.0, dispatch=0.0, drain=0.0)
         upload_bytes = 0
         # one host pack-buffer pair, reused: a copy from pageable host memory
         # returns only once the source has been read (it also waits for the
         # device work queued before it, so `put` includes that wait)
         pack_bufs = None
         it = iter(chunks)
+
+        def lap(key: str, name: str, t0: float) -> float:
+            """End a chunk phase begun at t0: add it to phase[key] and
+            record it as the span server_setup.chunk.<name>."""
+            t1 = time.perf_counter()
+            phase[key] += t1 - t0
+            telemetry.add_span("server_setup.chunk." + name, t0, t1)
+            return t1
+
         with telemetry.span("server_setup.stream_pack_upload_fold", chunks=m_pad // cc, m=m, cols=cols):
+            t = time.perf_counter()
             while True:
-                t0 = time.perf_counter()
                 j = next(it, None)
-                phase["wait"] += time.perf_counter() - t0
+                t = lap("wait", "wait", t)
                 if j is None:
                     break
                 r0 = j * cc
-                t0, c0 = time.perf_counter(), time.thread_time()
+                c0 = time.thread_time()
                 pack_bufs = lo_host, hi_host = engine.build_packed_planes(
                     mat16[r0 : r0 + cc], cc, c_pad, pack, bits, tight_lo=True, out=pack_bufs
                 )
-                phase["pack"] += time.perf_counter() - t0
                 phase["pack_cpu"] += time.thread_time() - c0
+                t = lap("pack", "pack", t)
 
-                t0 = time.perf_counter()
                 # tight lo (cc, cols): the zero columns never cross the link;
                 # the device planes' padding columns already hold -128
                 lo[r0 : r0 + cc, :cols].copy_(torch.from_numpy(lo_host))
@@ -581,15 +591,14 @@ class Server:
                 if pack:
                     hi[r0 : r0 + cc].copy_(torch.from_numpy(hi_host))
                     upload_bytes += hi_host.nbytes
-                phase["put"] += time.perf_counter() - t0
+                t = lap("put", "put", t)
 
-                t0 = time.perf_counter()
                 slab = prg_torch.expand_fp_slab(seed_words, r0, cc, LWE_DIMENSION, device)
                 hint_fold_partial(
                     slab.t(), lo[r0 : r0 + cc], hi[r0 : r0 + cc] if pack else None, bit_len, cols,
                     out=hint,
                 )
-                phase["dispatch"] += time.perf_counter() - t0
+                t = lap("dispatch", "fold", t)
             t0 = time.perf_counter()
             hint_host = hint[:, :cols].cpu().numpy().view(np.uint32)
             phase["drain"] = time.perf_counter() - t0
@@ -613,38 +622,49 @@ class Server:
 
     def respond(self, query: bytes) -> bytes:
         """Answer a single serialized client query."""
-        q = matrix_io.matrix_from_bytes(query)
-        if q.shape[0] != 1 or q.shape[1] != self._num_query_cols:
-            raise IncompatibleDimensionForRowVectorTransposedMatrixMultiplication()
-        return matrix_io.matrix_to_bytes(self.respond_batch(q))
+        with telemetry.span("server.respond"):
+            with telemetry.span("server.respond.parse"):
+                q = matrix_io.matrix_from_bytes(query)
+                if q.shape[0] != 1 or q.shape[1] != self._num_query_cols:
+                    raise IncompatibleDimensionForRowVectorTransposedMatrixMultiplication()
+            out = self.respond_batch(q)
+            with telemetry.span("server.respond.serialize"):
+                return matrix_io.matrix_to_bytes(out)
 
     def respond_batch(self, queries: np.ndarray) -> np.ndarray:
         """(Q, m) uint32 -> (Q, C) uint32: one kernel launch per batch over
         packed planes, two `torch._int_mm` products per K_SPLIT rows over
         digit planes, a uint64 matmul on the host for the numpy oracle."""
-        queries = np.ascontiguousarray(queries, np.uint32)
-        if queries.ndim != 2 or queries.shape[1] != self._num_query_cols:
-            raise IncompatibleDimensionForRowVectorTransposedMatrixMultiplication()
-        if self._backend == "numpy":
-            return (
-                queries.astype(np.uint64) @ self._planes.astype(np.uint64)
-            ).astype(np.uint32)
-        if self._sharded_respond is not None:
-            # zero columns up to the planes' padded rows, zero rows up to a
-            # multiple of the data axis; both are cut from the answer
-            nq, data = queries.shape[0], self._mesh.shape["data"]
-            q = torch.zeros((-(-nq // data) * data, self._planes.m_pad), dtype=torch.int32)
-            q[:nq, : queries.shape[1]] = torch.from_numpy(queries.view(np.int32))
-            return self._sharded_respond(q)[:nq].cpu().contiguous().numpy().view(np.uint32)
-        # the explicit device (never the calling thread's current one): the
-        # TCP dispatcher calls this from a worker thread
-        q = torch.from_numpy(queries.view(np.int32)).to(self.device)
-        if self._layout == "digit2":
-            p = self._planes
-            out = respond_ops.respond_batch(q, p.d0, p.d1)[:, : p.num_cols].contiguous()
-        else:
-            out = respond_batch_packed(q, self._planes)
-        return out.cpu().numpy().view(np.uint32)
+        with telemetry.span("server.respond_batch") as call:
+            queries = np.ascontiguousarray(queries, np.uint32)
+            if queries.ndim != 2 or queries.shape[1] != self._num_query_cols:
+                raise IncompatibleDimensionForRowVectorTransposedMatrixMultiplication()
+            call.set(queries=queries.shape[0])
+            if self._backend == "numpy":
+                return (
+                    queries.astype(np.uint64) @ self._planes.astype(np.uint64)
+                ).astype(np.uint32)
+            if self._sharded_respond is not None:
+                # zero columns up to the planes' padded rows, zero rows up to a
+                # multiple of the data axis; both are cut from the answer
+                nq, data = queries.shape[0], self._mesh.shape["data"]
+                q = torch.zeros((-(-nq // data) * data, self._planes.m_pad), dtype=torch.int32)
+                q[:nq, : queries.shape[1]] = torch.from_numpy(queries.view(np.int32))
+                return self._sharded_respond(q)[:nq].cpu().contiguous().numpy().view(np.uint32)
+            # the explicit device (never the calling thread's current one): the
+            # TCP dispatcher calls this from a worker thread
+            with telemetry.span("server.respond_batch.upload", bytes=queries.nbytes):
+                q = torch.from_numpy(queries.view(np.int32)).to(self.device)
+            with telemetry.span("server.respond_batch.kernel"):
+                if self._layout == "digit2":
+                    p = self._planes
+                    out = respond_ops.respond_batch(q, p.d0, p.d1)[:, : p.num_cols].contiguous()
+                else:
+                    out = respond_batch_packed(q, self._planes)
+            with telemetry.span("server.respond_batch.readback") as readback:
+                answer = out.cpu().numpy().view(np.uint32)
+                readback.set(bytes=answer.nbytes)
+            return answer
 
     # -- persistence ---------------------------------------------------------
 

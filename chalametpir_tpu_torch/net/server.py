@@ -15,8 +15,10 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import itertools
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -24,6 +26,7 @@ from ..core import matrix_io
 from ..errors import ChalametPIRError, IncompatibleDimensionForRowVectorTransposedMatrixMultiplication
 from ..models.server import Server
 from ..params import SEED_BYTE_LEN
+from ..utils import telemetry
 from .framing import read_frame, write_frame
 
 
@@ -57,6 +60,7 @@ class BatchDispatcher:
         self._closed = False
         self.batches = 0  # served batch count (observability/tests)
         self.served = 0  # served query count
+        self._seq = itertools.count()  # each taken batch's number, in its spans
 
     async def submit(self, query_bytes: bytes) -> bytes:
         if self._closed:
@@ -68,10 +72,12 @@ class BatchDispatcher:
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         # parse/validate on the submitting task so framing errors surface
         # on the right connection
-        q = matrix_io.matrix_from_bytes(query_bytes)
-        if q.shape[0] != 1 or q.shape[1] != self._server.num_query_cols:
-            raise IncompatibleDimensionForRowVectorTransposedMatrixMultiplication()
-        await self._queue.put((q[0], fut))
+        with telemetry.span("net.submit.parse"):
+            q = matrix_io.matrix_from_bytes(query_bytes)
+            if q.shape[0] != 1 or q.shape[1] != self._server.num_query_cols:
+                raise IncompatibleDimensionForRowVectorTransposedMatrixMultiplication()
+        # the time it was queued, for its net.queue_wait span
+        await self._queue.put((q[0], fut, time.perf_counter()))
         return await fut
 
     async def _worker(self):
@@ -82,30 +88,37 @@ class BatchDispatcher:
                 while len(batch) < self._max_batch and not self._queue.empty():
                     batch.append(self._queue.get_nowait())
                 self._busy = True
-                try:
-                    rows = np.stack([q for q, _ in batch])
-                    if self._pad_batches and rows.shape[0] < self._max_batch:
-                        rows = np.pad(rows, ((0, self._max_batch - rows.shape[0]), (0, 0)))
-                    out = await asyncio.to_thread(self._respond_batch, rows)
-                except Exception as exc:  # propagate to every waiter
-                    for _, fut in batch:
-                        if not fut.done():
-                            fut.set_exception(exc)
-                    batch = []
-                    self._busy = False
-                    continue
-                self.batches += 1
-                self.served += len(batch)
-                for i, (_, fut) in enumerate(batch):
-                    if not fut.done():
-                        fut.set_result(matrix_io.matrix_to_bytes(out[i][None, :]))
+                seq, taken = next(self._seq), time.perf_counter()
+                for _, _, queued in batch:
+                    telemetry.add_span("net.queue_wait", queued, taken, batch=seq)
+                with telemetry.span("net.batch", batch=seq, rows=len(batch), queued=self._queue.qsize()):
+                    try:
+                        with telemetry.span("net.batch.stack"):
+                            rows = np.stack([q for q, _, _ in batch])
+                            if self._pad_batches and rows.shape[0] < self._max_batch:
+                                rows = np.pad(rows, ((0, self._max_batch - rows.shape[0]), (0, 0)))
+                        with telemetry.span("net.batch.respond"):
+                            out = await asyncio.to_thread(self._respond_batch, rows)
+                    except Exception as exc:  # propagate to every waiter
+                        for _, fut, _ in batch:
+                            if not fut.done():
+                                fut.set_exception(exc)
+                        batch = []
+                        self._busy = False
+                        continue
+                    self.batches += 1
+                    self.served += len(batch)
+                    with telemetry.span("net.batch.serialize"):
+                        for i, (_, fut, _) in enumerate(batch):
+                            if not fut.done():
+                                fut.set_result(matrix_io.matrix_to_bytes(out[i][None, :]))
                 batch = []
                 self._busy = False
         finally:
             # worker is exiting (cancelled / loop teardown): fail the batch
             # in hand and everything still queued so no submitter hangs
             self._busy = False
-            pending = [f for _, f in batch]
+            pending = [f for _, f, _ in batch]
             while not self._queue.empty():
                 try:
                     pending.append(self._queue.get_nowait()[1])
