@@ -76,10 +76,19 @@ def query_with_retry(client, key: bytes) -> bytes:
 
 
 def client_for(ctx):
-    """The program's client, which must choose the configuration's engine."""
+    """The program's client, which must choose the configuration's engine.
+    Client.setup's seconds, to the end of the device work it launched, go
+    in ctx.counters["client_setup_s"]."""
+    import torch
     from chalametpir_tpu_torch import Client
 
+    if ctx.cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
     client = Client.setup(ctx.pir_seed, ctx.hint, ctx.fparams, prg_mode=ctx.cfg["prg_mode"], device=ctx.dev)
+    if ctx.cuda:
+        torch.cuda.synchronize()
+    ctx.counters["client_setup_s"] = time.perf_counter() - t0
     engine = client.setup_stats.get("engine")
     if engine != ctx.cfg["client_engine"]:
         raise RuntimeError(f"the client chose the {engine} engine; the configuration states "
@@ -309,7 +318,7 @@ def tcp(ctx) -> None:
     ctx.win, ctx.window_s = win, max(r["last"] for r in rows) - go
     ctx.attempted, ctx.failed = sum(r["sent"] for r in rows), sum(r["sent"] - r["done"] for r in rows)
     ctx.e2e = {"serve_qps": done / ctx.window_s}
-    ctx.counters = {"served": served, "batches": batches}
+    ctx.counters.update(served=served, batches=batches)
     answers = [a for report in reports for a in report["real"]]
     conns_order = [c for p in range(procs_n) for c in range(p, conns, procs_n)]
     ctx.values = []

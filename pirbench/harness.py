@@ -232,7 +232,7 @@ def run(name: str, seed: int, seconds: float, trace_on: bool, device: str = "cud
         gc.unfreeze()
     t0 = time.perf_counter()
     checks = judge.judge(ctx, keys, values, cfg, b, np.random.default_rng([seed, SETUP]), seed, control)
-    log(f"check {time.perf_counter() - t0:.2f} s")
+    log(f"check {time.perf_counter() - t0:.2f} s; A's rows took {ctx.a_rows_s:.2f} s")
     metrics_all = {"setup_s": ctx.setup_s, "server_setup_s": server_setup_s, **ctx.e2e}
     info["memory_peak_bytes"] = peak
     out = {"correct": judge.correct(checks), "attempted": ctx.attempted, "failed": ctx.failed}

@@ -1,13 +1,25 @@
-"""TurboSHAKE128 for one-block messages, batched in plain PyTorch.
+"""TurboSHAKE128 for one-block messages: batched in plain PyTorch, and
+one serial stream in plain C.
 
 Keccak-p[1600, 12] over (N, 25) int64 lane tensors (the u64 lanes'
 bits), on whatever device the caller's tensors live. Used for the key
 digests (TurboSHAKE128(key)[:32]) and the ctr PRG (block i of A's stream
 is TurboSHAKE128(seed || LE64(i))[:168]). Messages here are at most 40
 bytes, so every sponge absorbs one block and squeezes one block.
+
+The stream PRG reads one sponge's blocks one after another, each the
+permutation of the last: 8.37 GB of A at 2^20 is 50 M permutations in a
+chain, which only compiled code runs in seconds. xof.c is that chain,
+written from the specification beside this file and sharing nothing
+with the program; stream_rows calls it through ctypes.
 """
 
 from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
 
 import numpy as np
 import torch
@@ -24,6 +36,11 @@ ROUND_CONSTANTS = (
 RHO = (0, 1, 62, 28, 27, 36, 44, 6, 55, 20, 3, 10, 43, 25, 39, 41, 45, 15, 21, 8, 18, 2, 61, 56, 14)
 PI_DEST = tuple(i // 5 + 5 * ((2 * (i % 5) + 3 * (i // 5)) % 5) for i in range(25))
 CHUNK = 1 << 20  # sponges per permutation call
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "xof.c")
+# inside the checkout at a fixed path, so that later runs find the library
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+CFLAGS = ("-O3", "-fPIC", "-shared", "-std=c11", "-Wall")
+_lib = None
 
 
 def _signed(x: int) -> int:
@@ -84,3 +101,48 @@ def ctr_blocks(seed: bytes, blocks: np.ndarray, device) -> np.ndarray:
     msgs[:, :32] = np.frombuffer(seed, np.uint8)
     msgs[:, 32:] = np.asarray(blocks, "<u8").reshape(-1, 1).view(np.uint8)
     return turboshake_one_block(msgs, RATE, device)
+
+
+
+def _library():
+    """The serial XOF (xof.c), built with the host's C compiler on first
+    use into BUILD_DIR, under a name keyed by its source and flags: only
+    a checkout's first run builds it."""
+    global _lib
+    if _lib is None:
+        with open(_SRC, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(CFLAGS).encode()).hexdigest()[:16]
+        so = os.path.join(BUILD_DIR, f"libpirbench_xof_{digest}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run([os.environ.get("CC", "cc"), *CFLAGS, "-o", tmp, _SRC],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {_SRC} failed ({proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        lib.ts128_stream_rows.restype = ctypes.c_int
+        lib.ts128_stream_rows.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                                          ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+def stream_rows(seed: bytes, row_words: int, rows) -> np.ndarray:
+    """(len(rows), row_words) uint32: rows of one TurboSHAKE128(seed)
+    stream read as little-endian words, row r being words r * row_words
+    .. (r + 1) * row_words - 1, as the reference's generate_from_seed
+    reads A row-major (chalametpir_common/src/matrix.rs:541-558). rows
+    must rise strictly; every block up to the last row is squeezed."""
+    rows = np.ascontiguousarray(rows, np.int64)
+    out = np.empty((len(rows), row_words), np.uint32)
+    rc = _library().ts128_stream_rows(seed, len(seed), row_words, rows.ctypes.data, len(rows), out.ctypes.data)
+    if rc != 0:
+        raise ValueError("a seed of one block and rows that rise strictly only")
+    return out
+
+
+def xof_words(seed: bytes, count: int) -> np.ndarray:
+    """(count,) uint32: the first count words of TurboSHAKE128(seed)."""
+    return stream_rows(seed, count, [0])[0]

@@ -9,9 +9,12 @@ of a key is bits [e*b, e*b + b) of digest(key) || value || 0x81 || 0...,
 and in reverse peel order each key's slot is assigned
 D[slot] = enc - sum(D[other slots]) - murmur64(hash + column) mod 2^b
 (reference: chalametpir_common/src/matrix.rs:633-945,
-serialization.rs:22-116). A is the ctr PRG's matrix: A[r, c] is word
-c * 1774 + r of the stream whose block i is TurboSHAKE128(seed ||
-LE64(i)). Nothing here imports the program under test.
+serialization.rs:22-116). A comes from either PRG: in ctr mode A[r, c]
+is word c * 1774 + r of the stream whose block i is TurboSHAKE128(seed ||
+LE64(i)); in stream mode, the reference's own, A[r, c] is word r * m + c
+of the one TurboSHAKE128(seed) stream (matrix.rs:541-558), so its rows
+are keccak.stream_rows(seed, m, rows). Nothing here
+imports the program under test.
 """
 
 from __future__ import annotations
@@ -130,7 +133,6 @@ def a_rows(seed: bytes, m: int, r0: int, count: int, device) -> np.ndarray:
     offset = (first_byte - first_block * keccak.RATE)[:, None] + np.arange(4 * count)
     words = np.take_along_axis(stream, offset, axis=1)
     return np.ascontiguousarray(words).view("<u4").T.astype(np.uint32)
-
 
 def product(left: np.ndarray, right: np.ndarray, device="cpu") -> np.ndarray:
     """left . right mod 2^32, exactly: left's u32 words split into their 4

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The benchmark of chalametpir_tpu_torch on NVIDIA GPUs: one cell a run.
 
-    python3 pirbench/run.py --workload ctr-2p20-a3.lookup --seed 1 --seconds 30 --trace 0
+    python3 pirbench/run.py --workload ctr-2p20-a3.lookup --seed 1 --seconds 51 --trace 0
 
 Runs the cell of BENCHMARK.json named by --workload (harness.py): set-up
 from --seed, a measured window of --seconds, then the check against the

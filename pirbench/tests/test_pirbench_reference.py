@@ -99,5 +99,15 @@ def test_nothing_the_harness_runs_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    """The Python modules import the standard library, numpy and torch
+    alone (ctypes, os, subprocess and hashlib build and load xof.c), and
+    the C source includes stdint.h alone."""
+    allowed = {"__future__", "math", "struct", "dataclasses", "numpy", "torch", "ctypes", "hashlib", "os",
+               "subprocess"}
     for path in sources("reference"):
-        assert imported_top_names(path) <= {"__future__", "math", "struct", "dataclasses", "numpy", "torch"}, path
+        assert imported_top_names(path) <= allowed, path
+    c_files = [f for f in os.listdir(os.path.join(HERE, "reference")) if f.endswith(".c")]
+    assert c_files == ["xof.c"]
+    with open(os.path.join(HERE, "reference", "xof.c")) as f:
+        includes = {line.split()[1] for line in f if line.startswith("#include")}
+    assert includes == {"<stdint.h>"}
