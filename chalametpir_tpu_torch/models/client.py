@@ -424,7 +424,7 @@ class Client:
         # dispatch s.A on the device, overlap the host-side error sampling
         # and unblinding matvec with the device dot + readback (the host
         # engine computes it here, whole)
-        with telemetry.span("client.query.launch"):
+        with telemetry.span("client.query.launch", slabs=getattr(self._engine, "slabs_per_batch", 0)):
             if self._engine is None:
                 b_base = self._ternary_matvec(secret_s, self._pub_mat_a)
             else:
@@ -511,7 +511,7 @@ class Client:
                         codes = np.stack(
                             [self._sample_ternary(LWE_DIMENSION) for _ in fresh_keys]
                         )
-                    with telemetry.span("client.query.launch"):
+                    with telemetry.span("client.query.launch", slabs=getattr(self._engine, "slabs_per_batch", 0)):
                         if self._engine is None:
                             b_batch = [self._ternary_matvec(c, self._pub_mat_a) for c in codes]
                         else:

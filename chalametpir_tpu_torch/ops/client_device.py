@@ -289,6 +289,13 @@ class StreamingQueryEngine(_QueryEngine):
         """Device bytes held between batches: none."""
         return 0
 
+    @property
+    def slabs_per_batch(self) -> int:
+        """The K3 slabs of A that one batch regenerates, ceil(m /
+        cols_per_step); the other engines have none (the client's launch
+        span reads 0 for them)."""
+        return -(-self.m // self.cols_per_step)
+
     def matvec_batch_async(self, codes: np.ndarray) -> DeviceResult:
         """Dispatch every slab's generation and products and return without
         waiting. The result has m rounded up to 8 columns (the _int_mm

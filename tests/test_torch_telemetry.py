@@ -13,6 +13,7 @@ import torch
 import chalametpir_tpu_torch.models.client as client_mod
 import chalametpir_tpu_torch.models.server as server_mod
 from chalametpir_tpu_torch import Client, Server
+from chalametpir_tpu_torch.core import prg
 from chalametpir_tpu_torch.errors import ArithmeticOverflowAddingQueryIndicator
 from chalametpir_tpu_torch.net.server import BatchDispatcher
 from chalametpir_tpu_torch.ops import client_device
@@ -119,6 +120,52 @@ def test_a_lookup_round_records_the_span_tree(pir, recording, engine):
     assert rb.fields == {"queries": 1}
 
 
+@pytest.mark.parametrize("cols_per_step", [128, 336, 1 << 16])
+def test_the_launch_counts_the_slabs_the_streaming_engine_dispatched(pir, recording, monkeypatch, cols_per_step):
+    server, clients, keys, db = pir
+    base = clients["streaming"]
+    m = base._filter.num_fingerprints
+    engine = client_device.StreamingQueryEngine(base._seed, m, cols_per_step, "cpu")
+    client = Client(None, base._hint_mat_m, base._filter, engine, base._seed, "ctr")
+    dispatched = []
+    expand = client_device.prg_torch.expand_fp_slab
+
+    def counted(*args, **kwargs):
+        dispatched.append(args[1])
+        return expand(*args, **kwargs)
+
+    monkeypatch.setattr(client_device.prg_torch, "expand_fp_slab", counted)
+    value, spans = one_round(client, server, keys[5])
+    assert value == db[keys[5]]
+    slabs = -(-m // cols_per_step)
+    assert only(spans, "client.query.launch").fields == {"slabs": slabs}
+    assert dispatched[-slabs:] == list(range(0, slabs * cols_per_step, cols_per_step))
+    while True:
+        telemetry.take_spans()
+        try:
+            sent = client.query_batch(keys[30:32])
+            break
+        except ArithmeticOverflowAddingQueryIndicator:
+            continue
+    launches = [s for s in telemetry.take_spans() if s.name == "client.query.launch"]
+    assert launches and all(s.fields == {"slabs": slabs} for s in launches)
+    for key, q in zip(keys[30:32], sent):
+        assert client.process_response(key, server.respond(q)) == db[key]
+
+
+def test_the_launch_counts_no_slabs_for_the_resident_and_host_engines(pir, recording):
+    server, clients, keys, db = pir
+    _, spans = one_round(clients["resident"], server, keys[6])
+    assert only(spans, "client.query.launch").fields == {"slabs": 0}
+    base = clients["resident"]
+    host = Client(prg.expand_seed(LWE_DIMENSION, base._filter.num_fingerprints, base._seed, mode="ctr"),
+                  base._hint_mat_m, base._filter, None, base._seed, "ctr")
+    assert not host.uses_device
+    value, spans = one_round(host, server, keys[7])
+    assert value == db[keys[7]]
+    assert only(spans, "client.query.launch").fields == {"slabs": 0}
+
+
 def test_query_batch_and_the_pool_record_their_children(pir, recording):
     server, clients, keys, db = pir
     client = clients["resident"]
@@ -199,7 +246,7 @@ def test_no_span_holds_a_key_a_secret_or_an_array(pir, recording):
     assert spans
     for s in spans:
         assert all(type(v) in (int, float) for v in s.fields.values()), s
-        assert set(s.fields) <= {"bytes", "queries"}
+        assert set(s.fields) <= {"bytes", "queries", "slabs"}
         assert isinstance(s.error, (str, type(None))) and isinstance(s.name, str)
         assert repr(key)[2:-1] not in repr(s)
     with pytest.raises(TypeError):
