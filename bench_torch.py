@@ -84,6 +84,11 @@ WARM = 8  # untimed calls before each closed loop
 POOL = 16  # prepared queries (bench.py _client_phases)
 POOLED_TIMED, INLINE_TIMED, PROCESS_TIMED = 8, 32, 32
 BATCH = 64  # distinct queries per respond_batch
+# batch sizes at which a streaming client's s . A is timed (one launch of
+# the fused kernel up to kernels.SA_MAX_Q secrets, a launch per SA_MAX_Q
+# past it), the rows named SWEEP_ROWS + "{q}"
+STREAM_SWEEP_Q = (1, 2, 4, 8, 16, 32, 64)
+SWEEP_ROWS = "client_stream_q"
 QUERY_THREADS = 8  # threads making a batch's queries, as that many clients would at once
 PROFILE_ROUNDS = 20  # closed-loop rounds in the profiled respond window
 PROFILE_BATCHES = 4  # respond_batch calls in the profiled batch window
@@ -137,8 +142,8 @@ CELLS = by_name(
          source="bench.py:1431-1442 run_stage(20, 3, \"stream\", client_device=False): the 2^20 stream row, its host "
                 "client the Rust/WASM interop peer (:1366-1368); 2^20 x 32 B x 1 kB, arity 3"),
     Cell("ctr-2p21-a3-streaming", 21,
-         "the client's A (16.7 GB) over RESIDENT_PLANES_MAX_BYTES: query() streams A per batch (K3, "
-         "the relayout, _int_mm); K1 over twice the headline rows; an operator past the client's budget",
+         "the client's A (16.7 GB) over RESIDENT_PLANES_MAX_BYTES: query() regenerates A per batch in the "
+         "fused s.A kernel; K1 over twice the headline rows; an operator past the client's budget",
          client_engine="streaming",
          source="bench.py:782 _run_scaling_point: 2^21 x 32 B keys x 1 kB values, arity 3, ctr, b derived"),
     Cell("ctr-2p20-a3-tcp", 20,
@@ -163,15 +168,17 @@ CELLS = by_name(
          source="bench.py:1279-1297 run_stage(20, 4, \"ctr\"): the 2^20 arity-4 row; the reference's 2^20 "
                 "arity-4 bench (BASELINE.md:30-48): 2^20 x 32 B keys x 1 kB values, arity 4, ctr"),
     Cell("ctr-2p22-a3-streaming", 22,
-         "bench.py's default scaling point: the client's A (33.5 GB) streamed in 72 K3 slabs a batch; a 4.83 GB "
-         "lo plane past 2^32 bytes beside its hi plane; an 18.9 MB query; an operator with 4 M records",
+         "bench.py's default scaling point: the client's A (33.5 GB, its words past 2^32) regenerated per batch "
+         "in the fused s.A kernel; a 4.83 GB lo plane past 2^32 bytes beside its hi plane; an 18.9 MB query; "
+         "an operator with 4 M records",
          client_engine="streaming",
          source="bench.py:1384,1412 _run_scaling_point(22): 2^22 x 32 B keys x 1 kB values, arity 3, ctr, "
                 "b derived"),
     Cell("ctr-2p23-a3-streaming", 23,
          "the reference's largest DB as a real chain: an 8.39 M-key encode, b = 8, so the ctr setup folds 72 "
          "chunks of a 10.87 GB lo plane (no hi plane) with K2 at Q = 1774 and respond is K2 at Q = 1; the "
-         "client's A (66.97 GB) streamed in 144 K3 slabs a batch; a 37.7 MB query; an operator with 8 M records",
+         "client's A (66.97 GB) regenerated per batch in the fused s.A kernel; a 37.7 MB query; an operator with "
+         "8 M records",
          client_engine="streaming",
          source="bench.py:782 _run_scaling_point(23) (PIR_BENCH_SCALING_LOG_N=23, :1384-1385); BASELINE.json "
                 "configs[4]; 2^23 x 32 B x 1 kB, arity 3, ctr, b derived"),
@@ -195,20 +202,39 @@ def nvidia_smi(query: str) -> str:
                           check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
+def int32_ops_per_s() -> float:
+    """The card's int32 rate: SMs x 64 lanes x its maximum SM clock, read
+    from nvidia-smi."""
+    import torch
+
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * INT32_LANES_PER_SM * mhz * 1e6
+
+
 def keccak_bound_ms(nblocks: int) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of nblocks ctr blocks: the
     168-byte outputs written once at the card's memory rate, or KECCAK_OPS
-    per block at the card's int32 rate (SMs x 64 lanes x its maximum SM
-    clock, read from nvidia-smi)."""
-    import torch
-
+    per block at the card's int32 rate."""
     from chalametpir_tpu_torch.diag.respond_regimes import CARD_BYTES_PER_S
 
-    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    rate = torch.cuda.get_device_properties(0).multi_processor_count * INT32_LANES_PER_SM * mhz * 1e6
     by_bytes = nblocks * 168 / CARD_BYTES_PER_S * 1e3
-    by_ops = nblocks * KECCAK_OPS / rate * 1e3
+    by_ops = nblocks * KECCAK_OPS / int32_ops_per_s() * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def sa_bound_ms(q: int, ncols: int) -> tuple[float, str]:
+    """(least ms, "operations") of q secrets' s . A over ncols fingerprint
+    columns of ctr A generated on the fly (the fused kernel): KECCAK_OPS
+    for each ctr block that holds those columns, once a launch (a launch
+    per kernels.SA_MAX_Q secrets), and one multiply-add a word and
+    secret, at the card's int32 rate. Nothing of A is stored, so no byte
+    bound comes near."""
+    from chalametpir_tpu_torch.kernels import SA_MAX_Q
+    from chalametpir_tpu_torch.params import LWE_DIMENSION
+
+    words = ncols * LWE_DIMENSION
+    ops = -(-q // SA_MAX_Q) * -(-words * 4 // 168) * KECCAK_OPS + q * words
+    return ops / int32_ops_per_s() * 1e3, "operations"
 
 
 def build_db(n: int, value_len: int, rng: np.random.Generator) -> dict[bytes, bytes]:
@@ -704,7 +730,8 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, c
     queries' (or A rows') int8 digit rows, 4 a row, and the lo plane they
     are folded over (diag/scan_qd.py `int_mm_ms`; over a hi plane too it
     is the lo product alone); for a streaming client also one s.A batch
-    of its engine, bounded by its Keccak work. A host client launches
+    of its engine at Q = 1 and at each of STREAM_SWEEP_Q (the fused
+    kernel), bounded by its Keccak and dot work. A host client launches
     nothing and has no row. On the CPU the same rows, built and named,
     with None for each (no device time is measured there)."""
     import torch
@@ -767,8 +794,11 @@ def kernel_rows(cell: Cell, server, pir_seed: bytes, rng: np.random.Generator, c
         # query()'s batch once the pool is empty: one secret
         engine, codes = client._engine, rng.integers(0, 3, size=(1, LWE_DIMENSION), dtype=np.uint8)
         m_out = -(-m // 8) * 8
-        row("client_stream_batch", lambda: engine.matvec_batch_async(codes), 5,
-            lambda: keccak_bound_ms(-(-m_out * LWE_DIMENSION * 4 // 168)))
+        row("client_stream_batch", lambda: engine.matvec_batch_async(codes), 5, lambda: sa_bound_ms(1, m_out))
+        # each batch size, where kernels.SA_MAX_Q comes from
+        for q in STREAM_SWEEP_Q:
+            sweep_codes = rng.integers(0, 3, size=(q, LWE_DIMENSION), dtype=np.uint8)
+            row(f"{SWEEP_ROWS}{q}", lambda: engine.matvec_batch_async(sweep_codes), 5, lambda: sa_bound_ms(q, m_out))
     if cell.prg_mode == "stream":
         block = random_u32(STREAM_BLOCK_ROWS, m)
         out = torch.zeros((STREAM_BLOCK_ROWS, c_pad), dtype=torch.int32, device=dev)
@@ -796,8 +826,12 @@ LIBRARY_ROWS = ("ctr_fold_chunk", "stream_fold_block")
 
 
 def record_kernels(rec: Record, rows: dict) -> None:
+    """Every row into the full record; each row but the route sweep's
+    (SWEEP_ROWS, too many for the last line) as layers."""
     rec.full["kernels"] = rows
     for name, r in rows.items():
+        if name.startswith(SWEEP_ROWS):
+            continue
         rec.layer(f"{name}_ms", r and r["ms"], "ms")
         rec.layer(f"{name}_of_bound", r and r["of_bound"], "1")
         if name.endswith(f"_q{BATCH}") or name in LIBRARY_ROWS:

@@ -3,79 +3,26 @@
 // little-endian u32 words, block-major (nblocks, 42).
 //
 // Replaces the Pallas kernel chalametpir_tpu/ops/prg_jax.py
-// `_ctr_keccak_kernel` (launched by `ctr_blocks_pallas`). The TPU version
-// carries every 64-bit lane as a (lo, hi) u32 pair because its vector unit
-// has no 64-bit integers; Hopper has native 64-bit lanes, so each thread
-// holds the 25-lane state in registers as uint64_t and the compiler maps
-// the rotates onto funnel shifts.
+// `_ctr_keccak_kernel` (launched by `ctr_blocks_pallas`). The permutation,
+// with 64-bit lanes in registers, is keccak_p12.cuh's, which the fused
+// client kernel (ctr_keccak_sa.cu) shares.
 //
 // Bound: integer ALU. One Keccak-p[1600,12] permutation is ~1,000 64-bit
 // operations per 168 output bytes, so the card's integer throughput, not
 // its memory bandwidth, limits the kernel. Design: one thread per ctr block
-// (no cross-thread state), the 12 rounds with the lane loops fully
-// unrolled so every state index is a compile-time register; the 168-byte
-// outputs are staged through shared memory so the global stores of a
-// thread block are one contiguous, coalesced range instead of 168-byte
-// strided writes.
+// (no cross-thread state); the 168-byte outputs are staged through shared
+// memory so the global stores of a thread block are one contiguous,
+// coalesced range instead of 168-byte strided writes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "keccak_p12.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWords = 42;  // 21 rate lanes x 2 u32 words
-
-// the final 12 Keccak-f[1600] round constants (Keccak-p[1600, 12])
-__constant__ uint64_t kRc12[12] = {
-    0x000000008000808BULL, 0x800000000000008BULL, 0x8000000000008089ULL,
-    0x8000000000008003ULL, 0x8000000000008002ULL, 0x8000000000000080ULL,
-    0x000000000000800AULL, 0x800000008000000AULL, 0x8000000080008081ULL,
-    0x8000000000008080ULL, 0x0000000080000001ULL, 0x8000000080008008ULL,
-};
-
-__device__ __forceinline__ uint64_t rotl64(uint64_t x, int s) {
-  return (x << s) | (x >> (64 - s));
-}
-
-__device__ __forceinline__ void keccak_p12(uint64_t st[25]) {
-  // rho offsets and pi lane order walked along the pi cycle starting at
-  // lane 1 (the usual compact formulation of rho+pi)
-  const int rotc[24] = {1,  3,  6,  10, 15, 21, 28, 36, 45, 55, 2,  14,
-                        27, 41, 56, 8,  25, 43, 62, 18, 39, 61, 20, 44};
-  const int piln[24] = {10, 7,  11, 17, 18, 3, 5,  16, 8,  21, 24, 4,
-                        15, 23, 19, 13, 12, 2, 20, 14, 22, 9,  6,  1};
-#pragma unroll 1
-  for (int r = 0; r < 12; ++r) {
-    uint64_t bc[5];
-#pragma unroll
-    for (int i = 0; i < 5; ++i)
-      bc[i] = st[i] ^ st[i + 5] ^ st[i + 10] ^ st[i + 15] ^ st[i + 20];
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      const uint64_t t = bc[(i + 4) % 5] ^ rotl64(bc[(i + 1) % 5], 1);
-#pragma unroll
-      for (int j = 0; j < 25; j += 5) st[j + i] ^= t;
-    }
-    uint64_t t = st[1];
-#pragma unroll
-    for (int i = 0; i < 24; ++i) {
-      const int j = piln[i];
-      const uint64_t tmp = st[j];
-      st[j] = rotl64(t, rotc[i]);
-      t = tmp;
-    }
-#pragma unroll
-    for (int j = 0; j < 25; j += 5) {
-      uint64_t b[5];
-#pragma unroll
-      for (int i = 0; i < 5; ++i) b[i] = st[j + i];
-#pragma unroll
-      for (int i = 0; i < 5; ++i) st[j + i] = b[i] ^ (~b[(i + 1) % 5] & b[(i + 2) % 5]);
-    }
-    st[0] ^= kRc12[r];
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 ctr_keccak_kernel(uint64_t s0, uint64_t s1, uint64_t s2, uint64_t s3,
@@ -85,17 +32,7 @@ ctr_keccak_kernel(uint64_t s0, uint64_t s1, uint64_t s2, uint64_t s3,
   const int64_t b = first + threadIdx.x;
   if (b < nblocks) {
     uint64_t st[25];
-#pragma unroll
-    for (int i = 0; i < 25; ++i) st[i] = 0;
-    // absorb: seed in lanes 0-3, the 64-bit counter in lane 4, the
-    // TurboSHAKE domain byte 0x1F at byte 40, the pad bit at byte 167
-    st[0] = s0;
-    st[1] = s1;
-    st[2] = s2;
-    st[3] = s3;
-    st[4] = block0 + (uint64_t)b;  // u64 wraparound carries into the high word
-    st[5] = 0x1FULL;
-    st[20] = 0x8000000000000000ULL;
+    ctr_absorb(st, s0, s1, s2, s3, block0 + (uint64_t)b);  // u64 wraparound carries into the high word
     keccak_p12(st);
     uint32_t* mine = stage + threadIdx.x * kWords;
 #pragma unroll

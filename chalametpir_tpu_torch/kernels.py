@@ -31,8 +31,8 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("ctr_keccak.cu", "respond_packed.cu", "respond_digits.cu")
-HEADERS = ("mma_common.cuh",)  # included by the sources, from csrc/ alone
+SOURCES = ("ctr_keccak.cu", "ctr_keccak_sa.cu", "respond_packed.cu", "respond_digits.cu")
+HEADERS = ("keccak_p12.cuh", "mma_common.cuh")  # included by the sources, from csrc/ alone
 # each source compiles to an object in its own nvcc process, all started
 # together; one more nvcc call links the objects into the library
 NVCC_FLAGS = (
@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 
 # launches per kernel since the last reset_launch_counts(); a run reads
 # them to show that its path went through the kernels
-LAUNCHES = {"ctr_keccak": 0, "respond_packed_scan": 0, "respond_packed_mma": 0, "respond_digits": 0}
+LAUNCHES = {"ctr_keccak": 0, "ctr_keccak_sa": 0, "respond_packed_scan": 0, "respond_packed_mma": 0, "respond_digits": 0}
 
 _lib = None
 
@@ -115,6 +115,8 @@ def build() -> float:
     lib.ctr_keccak_launch.restype = ctypes.c_int
     lib.ctr_keccak_launch.argtypes = [u64, u64, u64, u64, u64, i64, vp, vp]
     ci = ctypes.c_int
+    lib.ctr_keccak_sa_launch.restype = ci
+    lib.ctr_keccak_sa_launch.argtypes = [u64, u64, u64, u64, vp, ci, ci, u64, i64, vp, i64, vp]
     lib.respond_packed_scan_launch.restype = ci
     lib.respond_packed_scan_launch.argtypes = [
         vp, i64, i64, i64, vp, vp, i64, i64, i64, ci, i64, i64, ci, ci, vp, i64, vp,
@@ -158,6 +160,39 @@ def ctr_keccak(out: torch.Tensor, seed_lanes: tuple[int, int, int, int], block0:
         _check(_lib.ctr_keccak_launch(*seed_lanes, block0, out.shape[0], out.data_ptr(), stream),
                "ctr_keccak")
     LAUNCHES["ctr_keccak"] += 1
+
+
+# secrets the fused s.A kernel takes in one launch (its largest
+# instantiation, csrc/ctr_keccak_sa.cu); prg_torch.ctr_sa launches a
+# larger batch in chunks of this many
+SA_MAX_Q = 32
+
+
+def ctr_keccak_sa(out: torch.Tensor, seed_lanes: tuple[int, int, int, int], signs: torch.Tensor,
+                  col0: int) -> None:
+    """out[q, c] = signs[q] . A[:, col0 + c] (mod 2^32, int32 bits) for the
+    (nq, ncols) out, A ctr-generated with signs.shape[1] rows and never
+    stored (csrc/ctr_keccak_sa.cu).
+
+    signs: (nq, rows) int8 in {-1, 0, 1}, contiguous, 1 <= nq <= SA_MAX_Q;
+    out: (nq, ncols) int32 with unit column stride."""
+    _require_cuda(out, "out", torch.int32)
+    _require_cuda(signs, "signs", torch.int8)
+    nq, rows = signs.shape if signs.dim() == 2 else (0, 0)
+    if not 1 <= nq <= SA_MAX_Q or rows < 1 or not signs.is_contiguous():
+        raise ValueError(f"signs must be a contiguous (nq, rows) tensor with 1 <= nq <= {SA_MAX_Q}")
+    if out.dim() != 2 or out.shape[0] != nq or out.stride(1) != 1:
+        raise ValueError("out must be (nq, ncols) with unit column stride")
+    if out.device != signs.device:
+        raise ValueError("out and signs must be on one device")
+    if col0 < 0 or (col0 + out.shape[1]) * rows * 4 >= 1 << 64:
+        raise ValueError("the columns' words must be addressable in 64 bits")
+    build()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        _check(_lib.ctr_keccak_sa_launch(*seed_lanes, signs.data_ptr(), nq, rows, col0, out.shape[1],
+                                         out.data_ptr(), out.stride(0), stream), "ctr_keccak_sa")
+    LAUNCHES["ctr_keccak_sa"] += 1
 
 
 # rows per split never drop below this: fewer rows per block would spend

@@ -424,12 +424,19 @@ class Client:
         # dispatch s.A on the device, overlap the host-side error sampling
         # and unblinding matvec with the device dot + readback (the host
         # engine computes it here, whole)
-        with telemetry.span("client.query.launch", slabs=getattr(self._engine, "slabs_per_batch", 0)):
+        with telemetry.span("client.query.launch", fused=self._fused_launches(1)):
             if self._engine is None:
                 b_base = self._ternary_matvec(secret_s, self._pub_mat_a)
             else:
                 b_base = self._engine.matvec_batch_async(secret_s[None, :])
         return self._finalize_query(key, secret_s, b_base)
+
+    def _fused_launches(self, q: int) -> int:
+        """The launch span's `fused` for a batch of q secrets: the streaming
+        engine's launches of the fused s.A kernel, 0 on the resident and
+        host engines."""
+        launches = getattr(self._engine, "fused_launches", None)
+        return launches(q) if launches else 0
 
     def _add_query_indicator(self, query_b: np.ndarray, key: bytes) -> None:
         """Add Δ = ⌊2^32/2^b⌋ at the key's filter rows, in place
@@ -511,7 +518,7 @@ class Client:
                         codes = np.stack(
                             [self._sample_ternary(LWE_DIMENSION) for _ in fresh_keys]
                         )
-                    with telemetry.span("client.query.launch", slabs=getattr(self._engine, "slabs_per_batch", 0)):
+                    with telemetry.span("client.query.launch", fused=self._fused_launches(len(fresh_keys))):
                         if self._engine is None:
                             b_batch = [self._ternary_matvec(c, self._pub_mat_a) for c in codes]
                         else:

@@ -1,19 +1,21 @@
 """Client query engines: s . A on the card.
 
 Counterpart of chalametpir_tpu/ops/client_device.py: the resident
-DeviceQueryEngine and the StreamingQueryEngine. A is handled as four
-biased int8 byte planes, planes[j][c, r] = ((A[r, c] >> 8j) & 255) - 128,
-fingerprint major like the ctr stream, so each slab of fingerprint
-columns is generated by the K3 kernel and recoded in place. The resident
-engine keeps all of A's planes, (4, m_pad, k_pad), built from the seed on
-the device (ctr mode) or from the host XOF's row blocks (stream mode,
+DeviceQueryEngine and the StreamingQueryEngine. The resident engine
+keeps A as four biased int8 byte planes, planes[j][c, r] = ((A[r, c] >>
+8j) & 255) - 128, fingerprint major like the ctr stream, so each slab of
+fingerprint columns is generated by the K3 kernel and recoded in place:
+all of A's planes, (4, m_pad, k_pad), built from the seed on the device
+(ctr mode) or from the host XOF's row blocks (stream mode,
 `from_host_rows`, and `from_host_matrix` for a whole host A: the same
 planes, so one product serves both modes; "km" planes, the JAX engine's
-row-major layout, are laid out fingerprint-major once, at construction);
-the streaming engine (ctr mode) keeps none and regenerates A slab by slab for
-every batch, so its device memory is O(cols_per_step) at any m. A query
-is four int8 products over the k contraction, recombined mod 2^32 with
-the bias correction 128 * sum(s) per plane:
+row-major layout, are laid out fingerprint-major once, at construction).
+The streaming engine (ctr mode) keeps none of A and regenerates it for
+every batch in the fused kernel (csrc/ctr_keccak_sa.cu), which adds each
+generated word's ternary products in registers, so its device memory is
+the batch's signs and result at any m. A query over the planes is four
+int8 products over the k contraction, recombined mod 2^32 with the bias
+correction 128 * sum(s) per plane:
 
     s . A = sum_j (s . plane_j + 128 * sum(s)) << 8j   (mod 2^32)
 
@@ -31,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from .. import kernels
 from ..errors import AcceleratorError, InvalidDimensionForVector
 from ..models.server import resolve_device
 from ..params import LWE_DIMENSION
@@ -77,15 +80,21 @@ def _recode_planes(slab: torch.Tensor) -> torch.Tensor:
     return (slab.view(torch.uint8).reshape(r, k, 4).permute(2, 0, 1) ^ 0x80).view(torch.int8)
 
 
-def _signs(codes: np.ndarray, k: int, k_pad: int, device) -> torch.Tensor:
-    """(Q, k) ternary codes {0:0, 1:+1, 2:-1} -> (rows, k_pad) int8 signs on
-    `device`, zero-padded to the _int_mm shape rules."""
+def _ternary(codes: np.ndarray, k: int) -> np.ndarray:
+    """(Q, k) ternary codes {0:0, 1:+1, 2:-1} -> (Q, k) int8 signs."""
     if codes.ndim != 2 or codes.shape[1] != k:
         raise InvalidDimensionForVector()
+    return np.where(codes == 2, -1, codes).astype(np.int8)
+
+
+def _signs(codes: np.ndarray, k: int, k_pad: int, device) -> torch.Tensor:
+    """(Q, k) ternary codes -> (rows, k_pad) int8 signs on `device`,
+    zero-padded to the _int_mm shape rules."""
+    ternary = _ternary(codes, k)
     q = codes.shape[0]
     rows = max(_MIN_ROWS, -(-q // 8) * 8)
     signs = np.zeros((rows, k_pad), np.int8)
-    signs[:q, :k] = np.where(codes == 2, -1, codes).astype(np.int8)
+    signs[:q, :k] = ternary
     return torch.from_numpy(signs).to(device)
 
 
@@ -191,8 +200,8 @@ class DeviceQueryEngine(_QueryEngine):
         device = resolve_device(device)
         k = LWE_DIMENSION
         planes = cls._empty_planes(
-            m, device, "use StreamingQueryEngine, which regenerates A per batch in "
-            "O(cols_per_step) device memory",
+            m, device, "use StreamingQueryEngine, which regenerates A per batch and "
+            "holds none of it",
         )
         m_pad = planes.shape[1]
         seed_words = prg_torch.seed_to_words(seed)
@@ -208,8 +217,8 @@ class DeviceQueryEngine(_QueryEngine):
     def streaming_from_seed_ctr(cls, seed: bytes, m: int, cols_per_step: int = 65536,
                                 device="cuda") -> "StreamingQueryEngine":
         """The ctr-mode engine that never holds A: each batch regenerates
-        it slab by slab (StreamingQueryEngine), O(cols_per_step) device
-        memory at any m."""
+        it in the fused s . A kernel (StreamingQueryEngine), no device
+        memory for A at any m."""
         return StreamingQueryEngine(seed, m, cols_per_step, device)
 
     @classmethod
@@ -265,20 +274,21 @@ class DeviceQueryEngine(_QueryEngine):
 
 class StreamingQueryEngine(_QueryEngine):
     """Drop-in for DeviceQueryEngine when A's planes would not fit: every
-    batch regenerates A in slabs of `cols_per_step` fingerprint columns
-    (K3 kernel), recodes each slab to byte planes and folds its products
-    into the output. Nothing of A outlives a slab. Same matvec surface."""
+    batch regenerates A in the fused kernel, which generates each
+    fingerprint column in registers and adds its ternary dots there
+    (`prg_torch.ctr_sa`, one launch per kernels.SA_MAX_Q secrets). Nothing
+    of A outlives a launch. Same matvec surface. `cols_per_step`, the JAX
+    engine's slab width, is taken and checked for its call surface; the
+    fused kernel covers every column in one launch, so it sets nothing."""
 
     def __init__(self, seed: bytes, m: int, cols_per_step: int = 65536, device="cuda"):
         if cols_per_step <= 0 or cols_per_step % 8:
             raise ValueError("cols_per_step must be a positive multiple of 8")
         self.k = LWE_DIMENSION
-        self.k_pad = -(-self.k // 8) * 8
         self.m = m
         self.layout = "streaming"
         self._device = resolve_device(device)
         self._seed_words = prg_torch.seed_to_words(seed)
-        self.cols_per_step = cols_per_step
 
     @property
     def device(self) -> torch.device:
@@ -289,29 +299,15 @@ class StreamingQueryEngine(_QueryEngine):
         """Device bytes held between batches: none."""
         return 0
 
-    @property
-    def slabs_per_batch(self) -> int:
-        """The K3 slabs of A that one batch regenerates, ceil(m /
-        cols_per_step); the other engines have none (the client's launch
-        span reads 0 for them)."""
-        return -(-self.m // self.cols_per_step)
+    def fused_launches(self, q: int) -> int:
+        """The fused kernel's launches for a batch of q secrets, ceil(q /
+        kernels.SA_MAX_Q): the client's launch span records them as
+        `fused`."""
+        return -(-q // kernels.SA_MAX_Q)
 
     def matvec_batch_async(self, codes: np.ndarray) -> DeviceResult:
-        """Dispatch every slab's generation and products and return without
-        waiting. The result has m rounded up to 8 columns (the _int_mm
-        width rule); the columns past m hold PRG output, sliced off by the
-        callers. The last slab is only as wide as the columns left."""
-        s = _signs(codes, self.k, self.k_pad, self.device)
-        q = codes.shape[0]
-        m_out = -(-self.m // 8) * 8
-        out = torch.empty((q, m_out), dtype=torch.int32, device=self.device)
-        # one planes buffer for every slab; its k padding stays zero
-        step = self.cols_per_step
-        planes = torch.zeros((4, min(step, m_out), self.k_pad), dtype=torch.int8, device=self.device)
-        for c0 in range(0, m_out, step):
-            ncols = min(step, m_out - c0)
-            slab = prg_torch.expand_fp_slab(self._seed_words, c0, ncols, self.k, self.device)
-            planes[:, :ncols, : self.k] = _recode_planes(slab)
-            del slab  # free it before the next slab is generated
-            out[:, c0 : c0 + ncols] = _plane_products(s, planes[:, :ncols], q)
-        return DeviceResult(out)
+        """Dispatch the batch and return without waiting. The result has m
+        rounded up to 8 columns, as the resident engine's; the columns past
+        m hold PRG output, sliced off by the callers."""
+        signs = torch.from_numpy(_ternary(codes, self.k)).to(self.device)
+        return DeviceResult(prg_torch.ctr_sa(self._seed_words, signs, 0, -(-self.m // 8) * 8, self.k))

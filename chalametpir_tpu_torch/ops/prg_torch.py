@@ -9,7 +9,9 @@ fingerprint columns is one contiguous run of ctr blocks.
 u32 words are carried as int32 tensors holding the same bits (torch has
 no u32 arithmetic). `ctr_blocks` is the wrapper: it runs the hand-written
 kernel (csrc/ctr_keccak.cu) for a CUDA device and the plain version
-`ctr_blocks_ref` only for the CPU.
+`ctr_blocks_ref` only for the CPU. `ctr_sa` is s . A over a window of A's
+fingerprint columns with A generated and consumed in one pass: the fused
+kernel (csrc/ctr_keccak_sa.cu) on a CUDA device, `ctr_sa_ref` on the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from .. import kernels
 from ..core.keccak import KECCAK_RC, RATE, _PI_DEST, _RHO
+from .digits import _wrap_i32
 
 WORDS_PER_BLOCK = RATE // 4  # 42
 
@@ -118,3 +121,51 @@ def expand_fp_slab(seed_words, col0: int, ncols: int, lwe_rows: int, device) -> 
     """(ncols, lwe_rows) int32 slab of ctr A: slab[j] = A[:, col0 + j]."""
     block0, offset = fp_block_start(col0, lwe_rows)
     return rows_from_blocks(seed_words, block0, offset, ncols, lwe_rows, device)
+
+
+# A words a step of the plain s . A expands at once (256 MB as int64)
+_SA_REF_WORDS = 1 << 25
+
+
+def ctr_sa_ref(seed_words, signs: torch.Tensor, col0: int, ncols: int, lwe_rows: int) -> torch.Tensor:
+    """Plain version of the fused s . A kernel: (q, ncols) int32 u32 bits of
+    signs . A[:, col0 : col0 + ncols] (mod 2^32), on signs' device, for
+    (q, lwe_rows) int8 ternary signs. A's columns come from `ctr_blocks_ref`
+    a step of columns at a time, and each dot is an int64 sum (at most
+    lwe_rows * (2^32 - 1) in size) reduced mod 2^32."""
+    q = signs.shape[0]
+    device = signs.device
+    s = signs.to(torch.int64)
+    out = torch.empty((q, ncols), dtype=torch.int32, device=device)
+    step = max(1, _SA_REF_WORDS // lwe_rows)
+    for c in range(0, ncols, step):
+        n = min(step, ncols - c)
+        block0, offset = fp_block_start(col0 + c, lwe_rows)
+        nblocks = -(-(offset + n * lwe_rows) // WORDS_PER_BLOCK)
+        words = ctr_blocks_ref(seed_words, block0, nblocks, device).reshape(-1)[offset : offset + n * lwe_rows]
+        a = words.reshape(n, lwe_rows).to(torch.int64) & 0xFFFFFFFF
+        for j in range(q):
+            out[j, c : c + n] = _wrap_i32((a * s[j]).sum(dim=1))
+    return out
+
+
+def ctr_sa(seed_words, signs: torch.Tensor, col0: int, ncols: int, lwe_rows: int) -> torch.Tensor:
+    """(q, ncols) int32 u32 bits of signs . A[:, col0 : col0 + ncols] mod
+    2^32 over ctr A with lwe_rows rows, for (q, lwe_rows) int8 signs in
+    {-1, 0, 1}: on a CUDA device the fused kernel (A never stored), one
+    launch per kernels.SA_MAX_Q secrets, each into its rows of the
+    output; the plain version on the CPU."""
+    if signs.dim() != 2 or signs.shape[1] != lwe_rows or signs.dtype != torch.int8:
+        raise ValueError(f"signs must be (q, {lwe_rows}) int8, got {tuple(signs.shape)} {signs.dtype}")
+    device = signs.device
+    if device.type == "cpu":
+        return ctr_sa_ref(seed_words, signs, col0, ncols, lwe_rows)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    out = torch.empty((signs.shape[0], ncols), dtype=torch.int32, device=device)
+    if ncols:
+        signs, lanes = signs.contiguous(), _seed_lanes(seed_words)
+        for q0 in range(0, signs.shape[0], kernels.SA_MAX_Q):
+            q1 = q0 + kernels.SA_MAX_Q
+            kernels.ctr_keccak_sa(out[q0:q1], lanes, signs[q0:q1], col0)
+    return out

@@ -26,10 +26,13 @@ launch counts set to 0 just before it and read just after:
   (chalametpir_tpu_torch.diag.scan_qd) at the planes of 2^20-2^23 entries,
   with torch._int_mm on the same digits as the library yardstick;
 - phase 8, the same serving path at 2^21 entries, where Client.setup
-  streams A per batch (StreamingQueryEngine), every decoded value checked;
-  then, for the cost of that choice, a client on the resident engine
-  (DeviceQueryEngine, 16.7 GB of A planes) beside it: same s . A bit for
-  bit, its query() wall and both engines' device time per batch;
+  streams A per batch (StreamingQueryEngine: the fused s.A kernel, a
+  launch per 32 secrets), every decoded value checked; the fused kernel
+  at the lookup's shape against its plain version on the card and timed
+  beside it and its bound; then, for the cost of that choice, a client on
+  the resident engine (DeviceQueryEngine, 16.7 GB of A planes) beside it:
+  same s . A bit for bit at one launch and at three, its query() wall and
+  both engines' device time per batch;
 - phase 9, the reference-interop deployment, stream PRG mode (A from the
   host XOF, as Rust peers derive it): first 2^14 entries set up on the
   card and with the plain versions on the host, hint, filter, responses
@@ -114,6 +117,9 @@ RESPOND_PALLAS = ("chalametpir_tpu/ops/respond_pallas.py:184 (K1, `_kernel_with_
                   "chalametpir_tpu/ops/respond_pallas.py:211 (K2, `_kernel_lo_only`)")
 SOURCES = {
     "ctr_keccak": ("chalametpir_tpu_torch/csrc/ctr_keccak.cu", "chalametpir_tpu/ops/prg_jax.py:144"),
+    "ctr_keccak_sa": ("chalametpir_tpu_torch/csrc/ctr_keccak_sa.cu",
+                      "chalametpir_tpu/ops/prg_jax.py:144 fused with the einsum of "
+                      "chalametpir_tpu/ops/client_device.py `_streaming_fold`"),
     "respond_packed_scan": ("chalametpir_tpu_torch/csrc/respond_packed.cu", RESPOND_PALLAS),
     "respond_packed_mma": ("chalametpir_tpu_torch/csrc/respond_packed.cu", RESPOND_PALLAS),
     "respond_digits": ("chalametpir_tpu_torch/csrc/respond_digits.cu",
@@ -292,7 +298,7 @@ def main(argv=None) -> int:
     from chalametpir_tpu_torch.ops import respond_packed as rp
     from chalametpir_tpu_torch.ops.client_device import DeviceQueryEngine, StreamingQueryEngine
     from chalametpir_tpu_torch.utils import telemetry
-    from bench_torch import keccak_bound_ms
+    from bench_torch import keccak_bound_ms, sa_bound_ms
 
     dev = torch.device("cuda")
     cuda_ms = scan_qd.cuda_ms  # one timing definition for every ms printed
@@ -613,11 +619,14 @@ def main(argv=None) -> int:
         if client.process_response(key, header + row.astype("<u4").tobytes()) != db[key]:
             raise AssertionError("2^21 batched query decoded a wrong value")
     torch.cuda.synchronize()
-    stream_launches = require_launched(("ctr_keccak", "respond_packed_scan", "respond_packed_mma"),
+    stream_launches = require_launched(("ctr_keccak", "ctr_keccak_sa", "respond_packed_scan", "respond_packed_mma"),
                                        "2^21 streaming path")
+    # the client's s.A is the fused kernel's alone: a launch a lookup, one
+    # per kernels.SA_MAX_Q secrets of the prepared batch, and no K3
     client_k3 = stream_launches["ctr_keccak"] - server_k3
-    if client_k3 <= 0:
-        raise AssertionError("the streaming client never launched the ctr Keccak kernel")
+    if stream_launches["ctr_keccak_sa"] < 4 + -(-len(batch_keys) // kernels.SA_MAX_Q) or client_k3:
+        raise AssertionError(f"the streaming client's launches: {stream_launches['ctr_keccak_sa']} fused for 4 "
+                             f"lookups and a batch of {len(batch_keys)}, {client_k3} K3")
     log(f"  server setup {setup_s:.2f} s, phases {server.setup_stats['phases_s']}; "
         f"client setup {client_s:.3f} s; m={m} b={server.mat_elem_bit_len}")
     log(f"  4 single queries and a prepared batch of {len(batch_keys)} decoded correctly; "
@@ -626,6 +635,18 @@ def main(argv=None) -> int:
     log(f"  launches {stream_launches}, of which the client's K3 {client_k3}; device peak during "
         f"the client's work {torch.cuda.max_memory_allocated(dev)} B, server planes "
         f"{server.planes.device_bytes} B")
+    # the fused kernel at the lookup's batch shape: one secret over all m_out columns
+    m_out = -(-m // 8) * 8
+    sa_words = prg_torch.seed_to_words(pir_seed)
+    sa_signs = torch.from_numpy(rng.integers(-1, 2, size=(1, LWE_DIMENSION)).astype(np.int8)).to(dev)
+    sa_fn = lambda: prg_torch.ctr_sa(sa_words, sa_signs, 0, m_out, LWE_DIMENSION)  # noqa: E731
+    sa_ref = lambda: prg_torch.ctr_sa_ref(sa_words, sa_signs, 0, m_out, LWE_DIMENSION)  # noqa: E731
+    errors.check("ctr_keccak_sa", sa_fn(), sa_ref(), f"Q=1 s.A over {m_out} columns (2^21) vs plain on the card")
+    k, p = cuda_ms(sa_fn, 5), cuda_ms(sa_ref, 1)
+    ms["ctr_keccak_sa"], plain_ms["ctr_keccak_sa"], library_ms["ctr_keccak_sa"] = k, p, None
+    bound["ctr_keccak_sa"] = sa_bound_ms(1, m_out)
+    log(f"  ctr_keccak_sa, Q=1 over {m_out} columns: kernel {k:.3f} ms, plain {p:.3f} ms, bound "
+        f"{bound['ctr_keccak_sa'][0]:.3f} ms ({bound['ctr_keccak_sa'][1]}; {bound['ctr_keccak_sa'][0] / k:.1%})")
     # the resident engine at the same m, which the rule turned down
     t0 = time.perf_counter()
     resident = Client(None, client._hint_mat_m, client._filter,
@@ -641,14 +662,19 @@ def main(argv=None) -> int:
             raise AssertionError("2^21 resident-engine query decoded a wrong value")
     log(f"  resident engine beside it: {resident._engine.device_bytes} B of A planes built in "
         f"{resident_s:.3f} s; query() wall {', '.join(f'{t:.1f}' for t in resident_query_ms)} ms")
-    for q in (1, 64):
+    for q in (1, 2 * kernels.SA_MAX_Q + 1):  # one launch, then three (the last one secret)
         codes = rng.integers(0, 3, size=(q, LWE_DIMENSION)).astype(np.int8)
-        if not np.array_equal(client._engine.matvec_batch(codes), resident._engine.matvec_batch(codes)):
+        before = dict(kernels.LAUNCHES)
+        streamed = client._engine.matvec_batch(codes)
+        moved = {name: n - before[name] for name, n in kernels.LAUNCHES.items() if n != before[name]}
+        if moved != {"ctr_keccak_sa": client._engine.fused_launches(q)}:
+            raise AssertionError(f"the streaming engine's launches at Q={q}: {moved}")
+        if not np.array_equal(streamed, resident._engine.matvec_batch(codes)):
             raise AssertionError(f"streaming and resident s.A differ at Q={q}")
         k = cuda_ms(lambda: client._engine.matvec_batch_async(codes), 3)
         r = cuda_ms(lambda: resident._engine.matvec_batch_async(codes), 5)
         log(f"  s.A, Q={q}, equal on both engines: streaming {k:.2f} ms of device time per batch "
-            f"({-(-m // client._engine.cols_per_step)} slabs), resident {r:.2f} ms")
+            f"({moved['ctr_keccak_sa']} fused launches), resident {r:.2f} ms")
     del db, client, resident, server
     torch.cuda.empty_cache()
     phase_done("phase 8")
@@ -725,8 +751,8 @@ def main(argv=None) -> int:
             raise AssertionError("stream-mode batched query decoded a wrong value")
     torch.cuda.synchronize()
     interop_launches = require_launched(("respond_packed_scan", "respond_packed_mma"), "2^20 stream-mode path")
-    if interop_launches["ctr_keccak"]:
-        raise AssertionError(f"the ctr Keccak kernel ran on the stream-mode path: {interop_launches}")
+    if interop_launches["ctr_keccak"] or interop_launches["ctr_keccak_sa"]:
+        raise AssertionError(f"a ctr Keccak kernel ran on the stream-mode path: {interop_launches}")
     planes = server.planes
     b, mrows, ncols = planes.mat_elem_bit_len, planes.num_rows, planes.num_cols
     log(f"  server setup {setup_s:.2f} s, stats {server.setup_stats}; device busy: {server_device}")
@@ -810,14 +836,15 @@ def main(argv=None) -> int:
         raise AssertionError("a value fetched over TCP did not decode")
     torch.cuda.synchronize()
     persist_launches = require_launched(("respond_packed_scan",), "stream-mode save/load and TCP path")
-    if persist_launches["ctr_keccak"]:
-        raise AssertionError(f"the ctr Keccak kernel ran on the stream-mode path: {persist_launches}")
+    if persist_launches["ctr_keccak"] or persist_launches["ctr_keccak_sa"]:
+        raise AssertionError(f"a ctr Keccak kernel ran on the stream-mode path: {persist_launches}")
     log(f"  TCP: {len(tcp_keys)} keys fetched and decoded in {tcp_s:.2f} s through the port's server and "
         f"client (setup with the host XOF included); dispatcher batches {dispatcher.batches}, served "
         f"{dispatcher.served}; launches {persist_launches}")
     for name in ("respond_packed_scan", "respond_packed_mma"):
         launches[name] += stream_launches[name] + interop_launches[name] + persist_launches[name]
     launches["ctr_keccak"] += stream_launches["ctr_keccak"]
+    launches["ctr_keccak_sa"] += stream_launches["ctr_keccak_sa"]
     # what the digit2 server of phase 12b must reproduce byte for byte, and
     # the packed server (the loaded one: 1.36 GB of planes) to time beside it
     interop = dict(seed=pir_seed, hint=hint, fparams=fparams, singles=singles, qmat=qmat, resp=resp,
@@ -1211,7 +1238,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     surface_launches = require_launched(("ctr_keccak", "respond_packed_scan", "respond_packed_mma"),
                                         "JAX-surface path")
-    for name in ("ctr_keccak", "respond_packed_scan", "respond_packed_mma"):
+    for name in ("ctr_keccak", "ctr_keccak_sa", "respond_packed_scan", "respond_packed_mma"):
         launches[name] += surface_launches[name]
     log(f"  Client(pub_mat_a, hint, filt, seed=seed, prg_mode=\"ctr\"): 8 keys round-tripped (4 inline, query() "
         f"wall {', '.join(f'{t:.0f}' for t in query_ms)} ms; 4 from the pool, prepare_stats {client.prepare_stats}); "

@@ -208,13 +208,13 @@ def test_last_line_holds_the_cells_metrics(name, records):
 
 # each cell of bench.py's 2^20 arity-4 row and scaling points at its full
 # size: (arity, log2 entries, m, engine, closed-loop responds, batches,
-# restart), (b, c, c_pad, pack, plane GB, A GB, ctr setup chunks, the
-# streaming client's K3 slabs a batch)
+# restart), (b, c, c_pad, pack, plane GB, A GB, ctr setup chunks, whether
+# the streaming client's fused s.A kernel reads ctr words past 2^32)
 FULL_SIZE = {
     "ctr-2p20-a4": ((4, 20, 1_130_496, "resident", 200, 20, True), (9, 940, 1024, 8, 1.30, 8.02, 9, None)),
-    "ctr-2p22-a3-streaming": ((3, 22, 4_718_592, "streaming", 100, 0, False), (9, 940, 1024, 8, 5.44, 33.48, 36, 72)),
+    "ctr-2p22-a3-streaming": ((3, 22, 4_718_592, "streaming", 100, 0, False), (9, 940, 1024, 8, 5.44, 33.48, 36, True)),
     "ctr-2p23-a3-streaming": ((3, 23, 9_437_184, "streaming", 100, 0, False),
-                              (8, 1057, 1152, 0, 10.87, 66.97, 72, 144)),
+                              (8, 1057, 1152, 0, 10.87, 66.97, 72, True)),
 }
 
 
@@ -225,15 +225,16 @@ def test_cell_holds_its_full_size_geometry(name):
     own b, c in c_pad padded columns, the pack (0: a lo plane alone), the
     planes' bytes, whether the last ctr fold chunk's view starts past 2^32
     bytes, the side of RESIDENT_PLANES_MAX_BYTES that the client's A falls
-    on, the setup's fold chunks and the streaming client's slabs."""
+    on, the setup's fold chunks and, for a streaming client, whether its
+    last fingerprint column starts past 2^32 words of the ctr stream (the
+    fused kernel's 64-bit word index)."""
     from chalametpir_tpu_torch.core import codec
     from chalametpir_tpu_torch.core.filter import filter_geometry
     from chalametpir_tpu_torch.models import client as port_client
     from chalametpir_tpu_torch.models.server import _ctr_chunk_cols
-    from chalametpir_tpu_torch.ops.client_device import StreamingQueryEngine
     from chalametpir_tpu_torch.ops.respond_packed import LANE, M_ALIGN, pack_geometry
 
-    (arity, log_n, m, engine, responds, batches, restart), (b, c, c_pad, pack, planes_gb, a_gb, chunks, slabs) = (
+    (arity, log_n, m, engine, responds, batches, restart), (b, c, c_pad, pack, planes_gb, a_gb, chunks, past_2p32_words) = (
         FULL_SIZE[name])
     cell = bench_torch.CELLS[name]
     assert (cell.arity, cell.log_n, cell.client_engine, cell.responds, cell.batches, cell.restart) == (
@@ -254,9 +255,8 @@ def test_cell_holds_its_full_size_geometry(name):
     assert (a_bytes > port_client.RESIDENT_PLANES_MAX_BYTES) == (engine == "streaming")
     assert port_client.uses_streaming(m) == (engine == "streaming")
     assert a_bytes / 1e9 == pytest.approx(a_gb, abs=0.01)
-    if slabs is not None:
-        step = StreamingQueryEngine(bytes(32), m, device="cpu").cols_per_step
-        assert len(range(0, -(-m // 8) * 8, step)) == slabs
+    if past_2p32_words is not None:
+        assert ((-(-m // 8) * 8 - 1) * LWE_DIMENSION >= 1 << 32) == past_2p32_words
 
 
 def test_2p23_cell_runs_the_pack0_chain(records):

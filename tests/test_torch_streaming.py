@@ -21,7 +21,7 @@ from chalametpir_tpu_torch.errors import (
 from chalametpir_tpu_torch.native import engine as native
 from chalametpir_tpu_torch.params import LWE_DIMENSION
 from chalametpir_tpu_torch.utils import generate_random_kv_database
-from chalametpir_tpu_torch import Client, Server
+from chalametpir_tpu_torch import Client, Server, kernels
 from chalametpir_tpu_torch.ops.client_device import DeviceQueryEngine, StreamingQueryEngine
 
 # the tensors here are small: one intra-op thread per test worker keeps
@@ -41,10 +41,12 @@ def _codes(g: np.random.Generator, q: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("m,step", [(300, 128), (1000, 64), (96, 512)])
-@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("q", [1, 3, kernels.SA_MAX_Q + 1])
 def test_streaming_matches_jax_streaming_and_resident(m, step, q, rng):
-    """Slabs of `step` columns, the last one partial (m is a multiple of
-    no step), against the JAX streaming engine and the resident engine."""
+    """Against the JAX streaming engine, whose slabs of `step` columns end
+    in a partial one (m is a multiple of no step), and the resident
+    engine; past kernels.SA_MAX_Q secrets the port's engine launches the
+    fused kernel more than once."""
     from chalametpir_tpu.ops.client_device import StreamingQueryEngine as JaxStreaming
 
     seed = rng.bytes(32)
@@ -166,16 +168,17 @@ def test_round_trip_through_streaming_client(rng, monkeypatch):
 
 @pytest.mark.cuda
 def test_streaming_engine_on_cuda_matches_native_and_resident(cuda):
-    from chalametpir_tpu_torch import kernels
-
+    """A batch past kernels.SA_MAX_Q secrets on the card: two fused
+    launches and no K3 launch."""
     g = np.random.default_rng(12)
     m = 20011
     seed = g.bytes(32)
-    codes = _codes(g, 5)
-    before = kernels.LAUNCHES["ctr_keccak"]
+    codes = _codes(g, kernels.SA_MAX_Q + 1)
+    before = dict(kernels.LAUNCHES)
     eng = StreamingQueryEngine(seed, m, device=cuda, cols_per_step=4096)
     got = eng.matvec_batch(codes)
-    assert kernels.LAUNCHES["ctr_keccak"] == before + 5  # one K3 launch per slab
+    assert kernels.LAUNCHES["ctr_keccak_sa"] == before["ctr_keccak_sa"] + 2
+    assert kernels.LAUNCHES["ctr_keccak"] == before["ctr_keccak"]
     a = prg.expand_seed(LWE_DIMENSION, m, seed, mode="ctr")
     assert np.array_equal(got, np.stack([native.ternary_matvec(c, a) for c in codes]))
     assert np.array_equal(got, DeviceQueryEngine.from_seed_ctr(seed, m, device=cuda).matvec_batch(codes))

@@ -12,7 +12,7 @@ import torch
 
 import chalametpir_tpu_torch.models.client as client_mod
 import chalametpir_tpu_torch.models.server as server_mod
-from chalametpir_tpu_torch import Client, Server
+from chalametpir_tpu_torch import Client, Server, kernels
 from chalametpir_tpu_torch.core import prg
 from chalametpir_tpu_torch.errors import ArithmeticOverflowAddingQueryIndicator
 from chalametpir_tpu_torch.net.server import BatchDispatcher
@@ -120,50 +120,67 @@ def test_a_lookup_round_records_the_span_tree(pir, recording, engine):
     assert rb.fields == {"queries": 1}
 
 
-@pytest.mark.parametrize("cols_per_step", [128, 336, 1 << 16])
-def test_the_launch_counts_the_slabs_the_streaming_engine_dispatched(pir, recording, monkeypatch, cols_per_step):
+# the engine launches the fused kernel once per kernels.SA_MAX_Q secrets,
+# whatever cols_per_step; the first three cases keep their old ids
+@pytest.mark.parametrize("cols_per_step,q", [
+    pytest.param(128, kernels.SA_MAX_Q + 1, id="128"),
+    pytest.param(336, 2 * kernels.SA_MAX_Q + 1, id="336"),
+    pytest.param(1 << 16, kernels.SA_MAX_Q + 1, id="65536"),
+    pytest.param(336, 2, id="fused-2"),
+    pytest.param(336, kernels.SA_MAX_Q, id="fused-SA_MAX_Q"),
+])
+def test_the_launch_counts_the_slabs_the_streaming_engine_dispatched(pir, recording, monkeypatch, cols_per_step, q):
     server, clients, keys, db = pir
     base = clients["streaming"]
     m = base._filter.num_fingerprints
     engine = client_device.StreamingQueryEngine(base._seed, m, cols_per_step, "cpu")
     client = Client(None, base._hint_mat_m, base._filter, engine, base._seed, "ctr")
-    dispatched = []
-    expand = client_device.prg_torch.expand_fp_slab
+    dispatched, fused = [], []
+    expand, sa = client_device.prg_torch.expand_fp_slab, client_device.prg_torch.ctr_sa
 
     def counted(*args, **kwargs):
         dispatched.append(args[1])
         return expand(*args, **kwargs)
 
+    def counted_sa(*args, **kwargs):
+        fused.append(args[1].shape[0])
+        return sa(*args, **kwargs)
+
     monkeypatch.setattr(client_device.prg_torch, "expand_fp_slab", counted)
+    monkeypatch.setattr(client_device.prg_torch, "ctr_sa", counted_sa)
     value, spans = one_round(client, server, keys[5])
     assert value == db[keys[5]]
-    slabs = -(-m // cols_per_step)
-    assert only(spans, "client.query.launch").fields == {"slabs": slabs}
-    assert dispatched[-slabs:] == list(range(0, slabs * cols_per_step, cols_per_step))
+    assert only(spans, "client.query.launch").fields == {"fused": 1}
+    assert dispatched == [] and fused and set(fused) == {1}
+    batch = keys[30 : 30 + q]
     while True:
         telemetry.take_spans()
+        del fused[:]
         try:
-            sent = client.query_batch(keys[30:32])
+            sent = client.query_batch(batch)
             break
         except ArithmeticOverflowAddingQueryIndicator:
             continue
     launches = [s for s in telemetry.take_spans() if s.name == "client.query.launch"]
-    assert launches and all(s.fields == {"slabs": slabs} for s in launches)
-    for key, q in zip(keys[30:32], sent):
-        assert client.process_response(key, server.respond(q)) == db[key]
+    # the batch's own launch first; an overflow's retry adds a lookup's
+    assert launches[0].fields == {"fused": -(-q // kernels.SA_MAX_Q)}
+    assert all(s.fields == {"fused": 1} for s in launches[1:])
+    assert dispatched == [] and fused[0] == q and set(fused[1:]) <= {1}
+    for key, sent_q in zip(batch, sent):
+        assert client.process_response(key, server.respond(sent_q)) == db[key]
 
 
 def test_the_launch_counts_no_slabs_for_the_resident_and_host_engines(pir, recording):
     server, clients, keys, db = pir
     _, spans = one_round(clients["resident"], server, keys[6])
-    assert only(spans, "client.query.launch").fields == {"slabs": 0}
+    assert only(spans, "client.query.launch").fields == {"fused": 0}
     base = clients["resident"]
     host = Client(prg.expand_seed(LWE_DIMENSION, base._filter.num_fingerprints, base._seed, mode="ctr"),
                   base._hint_mat_m, base._filter, None, base._seed, "ctr")
     assert not host.uses_device
     value, spans = one_round(host, server, keys[7])
     assert value == db[keys[7]]
-    assert only(spans, "client.query.launch").fields == {"slabs": 0}
+    assert only(spans, "client.query.launch").fields == {"fused": 0}
 
 
 def test_query_batch_and_the_pool_record_their_children(pir, recording):
@@ -246,7 +263,7 @@ def test_no_span_holds_a_key_a_secret_or_an_array(pir, recording):
     assert spans
     for s in spans:
         assert all(type(v) in (int, float) for v in s.fields.values()), s
-        assert set(s.fields) <= {"bytes", "queries", "slabs"}
+        assert set(s.fields) <= {"bytes", "fused", "queries"}
         assert isinstance(s.error, (str, type(None))) and isinstance(s.name, str)
         assert repr(key)[2:-1] not in repr(s)
     with pytest.raises(TypeError):
