@@ -8,20 +8,18 @@ with the packed layout, or from the archive its `save` writes.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from .models.server import Server, resolve_device
+from .device import resolve_device
+from .models.server import Server
 from .ops.respond_packed import PackedPlanes
 
 
 def planes_from_numpy(lo, hi, b: int, num_rows: int, num_cols: int, device) -> PackedPlanes:
     """Packed planes from host arrays: lo (m_pad, c_pad) int8, hi
     (m_pad, pc) uint8 or None."""
-    device = resolve_device(device)
     # copies: the source may be a read-only view of another framework's buffer
-    lo_t = torch.from_numpy(np.array(lo, np.int8)).to(device)
-    hi_t = None if hi is None else torch.from_numpy(np.array(hi, np.uint8)).to(device)
-    return PackedPlanes(lo_t, hi_t, b, num_rows, num_cols)
+    arrays = dict(lo=np.array(lo, np.int8), **({} if hi is None else dict(hi=np.array(hi, np.uint8))))
+    return PackedPlanes.from_archive(arrays, b, num_rows, num_cols, resolve_device(device))
 
 
 def _server(planes: PackedPlanes) -> Server:

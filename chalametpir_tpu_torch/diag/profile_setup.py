@@ -52,7 +52,7 @@ def main(argv=None) -> int:
     from chalametpir_tpu_torch import Server
     from chalametpir_tpu_torch.core import codec, hashing
     from chalametpir_tpu_torch.core.filter import construct_filter
-    from chalametpir_tpu_torch.models.server import resolve_device
+    from chalametpir_tpu_torch.device import resolve_device
     from chalametpir_tpu_torch.native import engine as native
     from chalametpir_tpu_torch.ops import respond_packed
     from chalametpir_tpu_torch.params import SERVER_SETUP_MAX_ATTEMPT_COUNT, find_mat_elem_bit_len

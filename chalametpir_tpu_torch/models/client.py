@@ -7,18 +7,18 @@ reservation and compare-and-pop, FrodoPIR's prepared-query pool and its
 refill thread, save/load and the ternary sampling — with its wire bytes
 and its concurrency contract unchanged, on the port's own native engine.
 The constructor is the JAX client's: a device engine, or with none the
-host engine, which computes s . A from a host copy of A (`pub_mat_a`)
-with the native ternary matvec. setup builds the same engines as the JAX
-client's setup: `device=False` (and "auto" on a machine without CUDA) the
-host engine, with A expanded on the host by core/prg.py; a torch device
-one of the port's device engines on it. In ctr mode A is
-generated on the device by the ctr Keccak kernel, and the engine is
-chosen by the JAX client's rule, with the same constant, so both
-packages pick the same engine: resident A planes (4 * m *
+host engine (`HostQueryEngine`), which computes s . A from a host copy
+of A (`pub_mat_a`) with the native ternary matvec. setup builds the same
+engines as the JAX client's setup: `device=False` (and "auto" on a
+machine without CUDA) the host engine, with A expanded on the host by
+core/prg.py; a torch device one of the port's device engines on it. In
+ctr mode A is generated on the device by the ctr Keccak kernel, and the
+engine is chosen by the JAX client's rule, with the same constant, so
+both packages pick the same engine: resident A planes (4 * m *
 LWE_DIMENSION bytes) up to RESIDENT_PLANES_MAX_BYTES, the streaming
-engine past it. In stream mode (the default, the
-reference's serial XOF) the host XOF expands A row block by row block
-into resident planes on the device, as the JAX client does.
+engine past it. In stream mode (the default, the reference's serial XOF)
+the host XOF expands A row block by row block into resident planes on
+the device, as the JAX client does.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 
 from ..core import hashing, matrix_io, prg
 from ..core.filter import BinaryFuseFilter, hash_batch
+from ..device import resolve_device
 from ..errors import (
     ArithmeticOverflowAddingQueryIndicator,
     DecodedRowNotPrependedWithDigestOfKey,
@@ -45,10 +46,9 @@ from ..errors import (
     RowNotDecodable,
 )
 from ..native import engine as _native
-from ..ops.client_device import STREAM_A_BLOCK_ROWS, DeviceQueryEngine, StreamingQueryEngine
+from ..ops.client_device import STREAM_A_BLOCK_ROWS, DeviceQueryEngine, HostQueryEngine, StreamingQueryEngine
 from ..params import LWE_DIMENSION, SEED_BYTE_LEN, SERVER_SETUP_MAX_ATTEMPT_COUNT, query_indicator
 from ..utils import telemetry
-from .server import resolve_device
 
 # resident client A planes (4 int8 byte planes, 4 * m * 1774 B) switch to
 # the streaming engine past this budget: the JAX client's value (set for a
@@ -122,14 +122,11 @@ class Query:
             self.c_ptr = vec.ctypes.data
 
 
-
 class Client:
     def __init__(self, pub_mat_a: np.ndarray | None, hint_mat_m: np.ndarray, filt: BinaryFuseFilter,
                  device_engine=None, seed: bytes | None = None, prg_mode: str = "stream"):
-        # A as a (k, m) uint32 host matrix, for the host engine: read only
-        # when there is no device engine
-        self._pub_mat_a = pub_mat_a
-        self._engine = device_engine  # the s . A engine (ops/client_device.py)
+        # the s . A engine (ops/client_device.py); with none, the host engine
+        self._engine = device_engine if device_engine is not None else HostQueryEngine(pub_mat_a)
         self._hint_mat_m = hint_mat_m
         self._filter = filt
         self._seed = seed  # retained for save(); public protocol material
@@ -218,12 +215,10 @@ class Client:
             t0 = time.perf_counter()
             pub_mat_a = prg.expand_seed(LWE_DIMENSION, m, seed, mode=prg_mode, stats=stats)
             stats["a_expand_s"] = round(time.perf_counter() - t0, 2)
-            client = cls(pub_mat_a, hint_mat_m, filt, seed=seed, prg_mode=prg_mode)
-            engine_name, plane_bytes = "host", 0
+            engine, engine_name = HostQueryEngine(pub_mat_a), "host"
         else:
             engine, engine_name, stats = _device_engine(seed, m, prg_mode, device)
-            client = cls(None, hint_mat_m, filt, engine, seed, prg_mode)
-            plane_bytes = engine.device_bytes
+        client = cls(None, hint_mat_m, filt, engine, seed, prg_mode)
         # user/sys and the fault count say where a slow setup went: sys- or
         # fault-dominated means kernel memory management, not XOF compute
         ru1 = telemetry.thread_rusage()
@@ -234,7 +229,7 @@ class Client:
             "sys_s": round(ru1.ru_stime - ru0.ru_stime, 2),
             "minflt": ru1.ru_minflt - ru0.ru_minflt,
             "engine": engine_name,
-            "plane_bytes": plane_bytes,
+            "plane_bytes": engine.device_bytes,
         }
         if prepared_queries > 0:
             client.prepare_queries(prepared_queries)
@@ -247,7 +242,8 @@ class Client:
         `count` key-independent (b = s.A + e, c = s.M) pairs and pool them.
         All `count` secrets ride one batched matvec, so A streams from
         device memory once per batch; the host-side error sampling and s.M
-        unblinding matvecs overlap the device dot and readback."""
+        unblinding matvecs overlap the device dot and readback (the host
+        engine's matvec runs after them)."""
         self._prepare_queries(count, record_stats=True)
 
     def _prepare_queries(self, count: int, record_stats: bool) -> None:
@@ -259,28 +255,11 @@ class Client:
         m = self._filter.num_fingerprints
         t0 = time.perf_counter()
         secrets = np.stack([self._sample_ternary(LWE_DIMENSION) for _ in range(count)])
-        b_dev = None
-        if self._engine is not None:
-            b_dev = self._engine.matvec_batch_async(secrets)
+        pending = self._engine.matvec_batch_async(secrets)
         errors = [self._sample_ternary(m) for _ in range(count)]
-        vec_cs = [self._ternary_matvec(secrets[i], self._hint_mat_m) for i in range(count)]
-        t_host = time.perf_counter()
-        stats: dict = {"host_s": round(t_host - t0, 3)}
-        if b_dev is not None:
-            # split the blocking fetch: residual device compute not hidden
-            # behind the host sampling vs the b-vector d2h readback (the
-            # dominant cost through a slow link: count x 4*k_pad bytes)
-            b_dev.block_until_ready()
-            t_done = time.perf_counter()
-            b_host = np.asarray(b_dev)
-            t_read = time.perf_counter()
-            stats["device_wait_s"] = round(t_done - t_host, 3)
-            stats["readback_s"] = round(t_read - t_done, 3)
-            stats["readback_bytes"] = int(b_host.nbytes)
-            b_batch = np.ascontiguousarray(b_host[:, :m])
-        else:
-            b_batch = np.stack([self._ternary_matvec(s, self._pub_mat_a) for s in secrets])
-            stats["host_matvec_s"] = round(time.perf_counter() - t_host, 3)
+        vec_cs = [_native.ternary_matvec(secrets[i], self._hint_mat_m) for i in range(count)]
+        stats: dict = {"host_s": round(time.perf_counter() - t0, 3)}
+        b_batch = np.ascontiguousarray(pending.read(stats)[:, :m])
         for i in range(count):
             _native.add_ternary_u32(b_batch[i], errors[i])
         entries = [(b_batch[i], vec_cs[i]) for i in range(count)]
@@ -421,22 +400,12 @@ class Client:
         """Inline s.A for a key the caller has already reserved."""
         with telemetry.span("client.query.secret"):
             secret_s = self._sample_ternary(LWE_DIMENSION)
-        # dispatch s.A on the device, overlap the host-side error sampling
-        # and unblinding matvec with the device dot + readback (the host
-        # engine computes it here, whole)
-        with telemetry.span("client.query.launch", fused=self._fused_launches(1)):
-            if self._engine is None:
-                b_base = self._ternary_matvec(secret_s, self._pub_mat_a)
-            else:
-                b_base = self._engine.matvec_batch_async(secret_s[None, :])
+        # dispatch s.A, overlap the host-side error sampling and unblinding
+        # matvec with the device dot + readback (the host engine computes
+        # it when it is read)
+        with telemetry.span("client.query.launch", fused=self._engine.fused_launches(1)):
+            b_base = self._engine.matvec_batch_async(secret_s[None, :])
         return self._finalize_query(key, secret_s, b_base)
-
-    def _fused_launches(self, q: int) -> int:
-        """The launch span's `fused` for a batch of q secrets: the streaming
-        engine's launches of the fused s.A kernel, 0 on the resident and
-        host engines."""
-        launches = getattr(self._engine, "fused_launches", None)
-        return launches(q) if launches else 0
 
     def _add_query_indicator(self, query_b: np.ndarray, key: bytes) -> None:
         """Add Δ = ⌊2^32/2^b⌋ at the key's filter rows, in place
@@ -518,17 +487,14 @@ class Client:
                         codes = np.stack(
                             [self._sample_ternary(LWE_DIMENSION) for _ in fresh_keys]
                         )
-                    with telemetry.span("client.query.launch", fused=self._fused_launches(len(fresh_keys))):
-                        if self._engine is None:
-                            b_batch = [self._ternary_matvec(c, self._pub_mat_a) for c in codes]
-                        else:
-                            # dispatch without waiting and hand each key its (1,
-                            # m_pad) device row: _finalize_query runs the host-side
-                            # work (error sampling, the s . M matvec) BEFORE
-                            # materialising it, overlapping the device dot +
-                            # readback like the inline and prepare paths do
-                            b_dev = self._engine.matvec_batch_async(codes)
-                            b_batch = [b_dev[j : j + 1] for j in range(len(fresh_keys))]
+                    with telemetry.span("client.query.launch", fused=self._engine.fused_launches(len(fresh_keys))):
+                        # dispatch without waiting and hand each key its (1,
+                        # m_pad) row: _finalize_query runs the host-side work
+                        # (error sampling, the s . M matvec) BEFORE
+                        # materialising it, overlapping the device dot +
+                        # readback like the inline and prepare paths do
+                        b_dev = self._engine.matvec_batch_async(codes)
+                        b_batch = [b_dev[j : j + 1] for j in range(len(fresh_keys))]
                 for i, key in enumerate(keys):
                     try:
                         if i < len(pool_entries):
@@ -566,22 +532,22 @@ class Client:
         the overflow error with no state change; callers retry with a
         fresh secret.
 
-        b_base is the host engine's (m,) array or an in-flight device
-        result (from matvec_batch_async): all host-only work (error
-        sampling, the s.M matvec, key hashing) runs before it is
-        materialised, so it overlaps the device dot and readback."""
+        b_base is an engine's (1, m_pad) result from matvec_batch_async,
+        still in flight: all host-only work (error sampling, the s.M
+        matvec, key hashing) runs before it is materialised, so it
+        overlaps the device dot and readback."""
         m = self._filter.num_fingerprints
         with telemetry.span("client.query.error"):
             error_e = self._sample_ternary(m)
         with telemetry.span("client.query.unblind"):
-            vec_c = self._ternary_matvec(secret_s, self._hint_mat_m)
+            vec_c = _native.ternary_matvec(secret_s, self._hint_mat_m)
 
         with telemetry.span("client.query.wait") as wait:
             b_host = np.asarray(b_base)
             wait.set(bytes=b_host.nbytes)
         # b_host is this call's own array (a device row's fresh host copy or
         # the host engine's matvec output), so the error goes in in place
-        query_b = b_host[0, :m] if b_host.ndim == 2 else b_host  # a device row: (1, m_pad)
+        query_b = b_host[0, :m]
         with telemetry.span("client.query.indicator"):
             _native.add_ternary_u32(query_b, error_e)
             self._add_query_indicator(query_b, key)
@@ -751,10 +717,4 @@ class Client:
         """True when s . A runs in an engine on a torch device; False for
         the host engine (the constructor with no engine, or
         setup(device=False))."""
-        return self._engine is not None
-
-    @staticmethod
-    def _ternary_matvec(t_codes: np.ndarray, mat: np.ndarray) -> np.ndarray:
-        """(s . mat) mod 2^32 for ternary s — plus/minus row sums, no
-        multiplies."""
-        return _native.ternary_matvec(t_codes, mat)
+        return self._engine.uses_device

@@ -23,19 +23,11 @@ for byte the same protocol; the device work is the port's:
   of A's row blocks (stream), and a batch costs one launch a shard, the
   shards' int32 partials summed mod 2^32.
 
-`layout="auto"` packs the planes at every element width, b 13-14 included
-(one hi byte per element), where the JAX package's "auto" switches to its
-digit2 layout: the hint and the responses are the same integers.
-`layout="digit2"` holds D as two int8 digit planes and multiplies them with
-`torch._int_mm` (ops/matmul_u32.py, ops/respond.py), as the JAX package's
-digit2 path does with `lax.dot_general`: no hand-written kernel, and much
-slower on a CUDA card than the packed kernel. `backend="numpy"` is the
-oracle the tests cross-check against: D as uint16 on the host, every
-product a uint64 numpy matmul, no torch tensor anywhere.
-
-`device` is explicit: "cuda" runs the kernels and raises AcceleratorError
-when there is no CUDA device; "cpu" runs the plain torch versions (the
-test path).
+Each way of holding D is a serving state (ops/serving.py) that answers,
+folds A's rows into the hint and archives itself; the server picks one at
+setup (or from an archive's meta at load) and never asks again which one
+it holds. `Server.setup` sets out the backends and layouts; `device` is
+resolved once (device.py) and never falls back.
 """
 
 from __future__ import annotations
@@ -48,17 +40,18 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel
 from ..core import encode_db, matrix_io, prg
 from ..core.filter import filter_geometry
+from ..device import resolve_device
 from ..errors import (
-    AcceleratorError,
     EmptyKVDatabase,
     ImpossibleEncodedDBMatrixElementBitLength,
     IncompatibleDimensionForRowVectorTransposedMatrixMultiplication,
 )
 from ..native import engine
-from ..ops import matmul_u32, prg_torch
-from ..ops import respond as respond_ops
+from ..ops import prg_torch
+from ..ops.respond import DigitPlanes, HostPlanes, build_digit_planes
 from ..ops.respond_packed import (
     LANE,
     M_ALIGN,
@@ -66,8 +59,6 @@ from ..ops.respond_packed import (
     build_packed_db,
     hint_fold_partial,
     pack_geometry,
-    respond_batch_packed,
-    respond_packed_core,
 )
 from ..params import (
     LWE_DIMENSION,
@@ -92,6 +83,8 @@ DIGIT2_BLOCK_BYTES = 1 << 30
 # fold groups. Its padded rows are zero and cut off; the port folds all
 # LWE_DIMENSION rows in one launch and pads none, so only callers read it
 K_PAD = -(-LWE_DIMENSION // 128) * 128  # 1792
+# the serving state a device archive's layout rebuilds (Server.load)
+_ARCHIVED_LAYOUTS = {"packed": PackedPlanes, "digit2": DigitPlanes}
 
 
 def _ctr_chunk_cols(m: int, tile_k: int) -> int:
@@ -120,30 +113,6 @@ def _gc_paused():
             gc.enable()
 
 
-def resolve_device(device) -> torch.device:
-    """torch.device for a device request. "cpu" and "cuda" (or any torch
-    device of those types) are taken as they are; the JAX client's values
-    are accepted too: False is the CPU, True is CUDA, "auto" is CUDA when
-    there is a CUDA device and the CPU otherwise. The choice is made here,
-    once, before any work: a CUDA request on a machine without CUDA raises
-    instead of running on the CPU, and nothing that fails later falls back.
-    Client.setup takes False, and "auto" without CUDA, as the JAX client's
-    host engine before it calls this."""
-    if device is False:
-        device = "cpu"
-    elif device is True:
-        device = "cuda"
-    elif isinstance(device, str) and device == "auto":
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise AcceleratorError(f"device {device} requested but CUDA is not available")
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device} (cpu or cuda)")
-    return device
-
-
 def _resolve_backend(backend: str) -> str:
     """"torch" or "numpy". "auto" is torch. The JAX package's "jax" names a
     backend this package does not have: ValueError, as for any unknown
@@ -165,60 +134,111 @@ def _digit2_block_rows(m: int) -> int:
     return min(max(8, DIGIT2_BLOCK_BYTES // (4 * m)), LWE_DIMENSION)
 
 
+# Server._setup_host_rows by layout: (planes builder, its span, its phases_s
+# key, the fold's span, rows of A a fold when the caller names none, from m)
+_HOST_ROW_LAYOUTS = {
+    "packed": (build_packed_db, "server_setup.pack_and_upload", "pack_upload", "server_setup.hint_stream",
+               lambda m: STREAM_BLOCK_ROWS),
+    "digit2": (build_digit_planes, "server_setup.digit_planes_upload", "planes_upload", "server_setup.hint_digit2",
+               _digit2_block_rows),
+}
+
+
 class _CpuClock:
-    """Wall, this thread's CPU and the process's CPU since construction, for
-    the `cpu_s` entry of setup_stats: measured with perf_counter,
-    thread_time and process_time, never modeled."""
+    """Wall, this thread's CPU and the process's CPU since construction:
+    measured with perf_counter, thread_time and process_time, never modeled."""
 
     def __init__(self):
         self.t0 = time.perf_counter(), time.thread_time(), time.process_time()
 
-    def attrib(self, **other: float) -> dict:
-        """{wall, main, <other thread>, runtime, external}: `other` names
-        one helper thread's measured CPU seconds (the encode worker, the
-        XOF producer); runtime is every further thread of the process;
+    def setup_stats(self, phase: dict, upload_s: float, helper: dict, **counts) -> dict:
+        """A route's setup_stats: `counts`, `upload_s`, the `phase` seconds
+        and `cpu_s` = {wall, main, <helper>, runtime, external}: `helper`
+        names one helper thread's measured CPU seconds (the encode worker,
+        the XOF producer); runtime is every further thread of the process;
         external is wall during which the process held no core."""
         wall, main, proc = (now - then for now, then in zip(
             (time.perf_counter(), time.thread_time(), time.process_time()), self.t0))
-        helper = sum(other.values())
-        return {
+        cpu = {
             "wall": round(wall, 2),
             "main": round(main, 2),
-            **{k: round(v, 2) for k, v in other.items()},
-            "runtime": round(max(proc - main - helper, 0.0), 2),
+            **{k: round(v, 2) for k, v in helper.items()},
+            "runtime": round(max(proc - main - sum(helper.values()), 0.0), 2),
             "external": round(max(wall - proc, 0.0), 2),
         }
+        return {**counts, "upload_s": round(upload_s, 3), "phases_s": {k: round(v, 2) for k, v in phase.items()},
+                "cpu_s": cpu, "wall_s": round(time.perf_counter() - self.t0[0], 2)}
+
+
+def _encode(db, arity: int, bit_len: int, rng):
+    """(D, the filter, seconds) by the JAX package's encode, so the same rng
+    gives the same filter."""
+    t0 = time.perf_counter()
+    with telemetry.span("server_setup.encode_db", entries=len(db), b=bit_len):
+        mat_d, filt = encode_db.from_kv_database(db, arity, bit_len, SERVER_SETUP_MAX_ATTEMPT_COUNT, rng)
+    return mat_d, filt, time.perf_counter() - t0
+
+
+def _lap(phase: dict, key: str, t0: float, span: str | None = None) -> float:
+    """Add the phase begun at t0 to phase[key] (and record it as `span`); returns its end."""
+    t1 = time.perf_counter()
+    phase[key] = phase.get(key, 0.0) + t1 - t0
+    if span:
+        telemetry.add_span(span, t0, t1)
+    return t1
+
+
+def _fold_host_rows(planes, seed: bytes, m: int, block_rows: int, prg_mode: str, phase: dict,
+                    span: str, **fields):
+    """(the (k, c) uint32 hint A . D on the host, the bytes of A put, the
+    producer's stats) from A's host row blocks, which a thread produces a
+    block ahead (the native XOF squeeze releases the GIL); a block's copy
+    from pageable memory returns once its source has been read, so the
+    producer's next block never races it. Adds the phases into `phase`."""
+    hint = torch.zeros((LWE_DIMENSION, planes.c_pad), dtype=torch.int32, device=planes.device)
+    xof: dict = {}
+    a_bytes = 0
+    with telemetry.span(span, **fields), contextlib.closing(prg.prefetch_iter(
+            prg.iter_row_blocks(LWE_DIMENSION, m, seed, block_rows, mode=prg_mode), stats=xof)) as blocks:
+        t = time.perf_counter()
+        while (item := next(blocks, None)) is not None:
+            t = _lap(phase, "wait", t)
+            r0, block = item
+            a = torch.from_numpy(np.ascontiguousarray(block).view(np.int32)).to(planes.device)
+            a_bytes += block.nbytes
+            t = _lap(phase, "put", t)
+            planes.fold_rows(a, hint[r0 : r0 + block.shape[0]])
+            t = _lap(phase, "dispatch", t)
+        t = _lap(phase, "wait", t)
+        hint_host = hint[:, : planes.num_cols].cpu().numpy().view(np.uint32)
+        _lap(phase, "drain", t)
+    return hint_host, a_bytes, xof
 
 
 class Server:
-    """Stateful PIR server holding the encoded database: packed planes or
-    digit planes on a torch device, or D itself on the host (the numpy
-    oracle)."""
+    """Stateful PIR server holding the encoded database in a serving state
+    (ops/serving.py): packed planes or digit planes on a torch device,
+    packed planes sharded over a mesh, or D on the host (the numpy oracle)."""
 
     def __init__(self, backend: str, planes, num_query_cols: int, num_response_cols: int,
                  mat_elem_bit_len: int, layout: str = "digit2", mesh=None):
         """The JAX package's constructor, in its order: `backend` "torch"
         or "numpy" (also "auto", which is "torch"; "jax" raises ValueError);
-        `planes` as `planes` returns them for that backend and layout."""
-        # torch/packed: PackedPlanes on one device, or parallel.ShardedPlanes
-        # over `mesh`; torch/digit2: ops.respond.DigitPlanes; numpy: the raw
-        # uint16 D matrix
+        `planes` as `planes` returns them for that backend and layout.
+        `mesh` is taken for the JAX call surface: sharded planes carry
+        their own."""
         if layout not in ("packed", "digit2"):
             raise ValueError(f"unknown layout {layout!r} (packed/digit2)")
         self._planes = planes
         self._backend = _resolve_backend(backend)
+        # the numpy oracle's raw D serves through its holder
+        self._state = HostPlanes(planes) if self._backend == "numpy" else planes
         self._layout = layout
         self._num_query_cols = num_query_cols
         self._num_response_cols = num_response_cols
         self.mat_elem_bit_len = mat_elem_bit_len
         # measured setup attribution, filled by setup()
         self.setup_stats: dict = {}
-        self._mesh = mesh
-        self._sharded_respond = None
-        if mesh is not None:
-            from ..parallel import sharded_respond_packed_fn
-
-            self._sharded_respond = sharded_respond_packed_fn(mesh, planes)
 
     @classmethod
     def setup(
@@ -305,223 +325,89 @@ class Server:
                 server, hint, filt = cls._setup_sharded(seed, db, arity, bit_len, rng, prg_mode, mesh)
             elif backend == "numpy":
                 server, hint, filt = cls._setup_numpy(seed, db, arity, bit_len, rng, prg_mode)
-            elif layout == "digit2":
-                server, hint, filt = cls._setup_digit2(seed, db, arity, bit_len, rng, device, prg_mode,
-                                                       hint_block_rows)
-            elif prg_mode == "ctr":
+            elif layout != "digit2" and prg_mode == "ctr":
                 server, hint, filt = cls._setup_ctr_pipelined(seed, db, arity, bit_len, rng, device)
             else:
-                server, hint, filt = cls._setup_stream(seed, db, arity, bit_len, rng, device,
-                                                       hint_block_rows or STREAM_BLOCK_ROWS)
+                server, hint, filt = cls._setup_host_rows(seed, db, arity, bit_len, rng, device,
+                                                          "digit2" if layout == "digit2" else "packed", prg_mode,
+                                                          hint_block_rows)
         return server, matrix_io.matrix_to_bytes(hint), filt.to_bytes()
 
     @classmethod
     def _setup_numpy(cls, seed, db, arity, bit_len, rng, prg_mode):
-        """The oracle: the whole of A on the host and one uint64 matmul,
-        exact mod 2^32 by wrap-around. Nothing here touches torch."""
-        with telemetry.span("server_setup.encode_db", entries=len(db), b=bit_len):
-            mat_d, filt = encode_db.from_kv_database(
-                db, arity, bit_len, SERVER_SETUP_MAX_ATTEMPT_COUNT, rng
-            )
+        """The oracle: the whole of A on the host and one uint64 matmul.
+        Nothing here touches torch."""
+        mat_d, filt, _ = _encode(db, arity, bit_len, rng)
         m, cols = mat_d.shape
-        mat_a = prg.expand_seed(LWE_DIMENSION, m, seed, mode=prg_mode)
-        hint = (mat_a.astype(np.uint64) @ mat_d.astype(np.uint64)).astype(np.uint32)
         # layout "digit2": what the JAX package's numpy server reports and
         # writes into its archives, though D is held unpacked
-        return cls("numpy", mat_d, m, cols, bit_len, "digit2"), hint, filt
-
-    @classmethod
-    def _setup_digit2(cls, seed, db, arity, bit_len, rng, device, prg_mode, hint_block_rows):
-        """digit2 setup, the JAX package's: encode D on the host, recode it
-        into two balanced int8 digit planes on the device, then fold A into
-        the hint a block of rows at a time, each block's four digits
-        against both planes (ops/matmul_u32.py). A's row blocks come off
-        the host in both PRG modes, a block ahead in a thread: the serial
-        XOF in stream mode; in ctr mode the whole of A expanded on the host
-        first, since a row block is strided in the fingerprint-major ctr
-        stream."""
-        clock = _CpuClock()
-        wall0 = time.perf_counter()
-        with telemetry.span("server_setup.encode_db", entries=len(db), b=bit_len):
-            mat_d, filt = encode_db.from_kv_database(
-                db, arity, bit_len, SERVER_SETUP_MAX_ATTEMPT_COUNT, rng
-            )
-        m, cols = mat_d.shape
-        phase = dict(encode=time.perf_counter() - wall0, planes_upload=0.0, wait=0.0, put=0.0,
-                     dispatch=0.0, drain=0.0)
-        t0 = time.perf_counter()
-        with telemetry.span("server_setup.digit_planes_upload", m=m, cols=cols):
-            planes = respond_ops.build_digit_planes(mat_d, bit_len, device)
-        del mat_d
-        phase["planes_upload"] = time.perf_counter() - t0
-
-        block_rows = min(hint_block_rows or _digit2_block_rows(m), LWE_DIMENSION)
-        hint = torch.zeros((LWE_DIMENSION, planes.d0.shape[1]), dtype=torch.int32, device=device)
-        xof: dict = {}
-        a_bytes = 0
-        with telemetry.span("server_setup.hint_digit2", blocks=-(-LWE_DIMENSION // block_rows)), \
-                contextlib.closing(prg.prefetch_iter(
-                    prg.iter_row_blocks(LWE_DIMENSION, m, seed, block_rows, mode=prg_mode), stats=xof
-                )) as blocks:
-            while True:
-                t0 = time.perf_counter()
-                item = next(blocks, None)
-                phase["wait"] += time.perf_counter() - t0
-                if item is None:
-                    break
-                r0, block = item
-                t0 = time.perf_counter()
-                a = torch.from_numpy(np.ascontiguousarray(block).view(np.int32)).to(device)
-                a_bytes += block.nbytes
-                phase["put"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                rows = slice(r0, r0 + block.shape[0])
-                hint[rows] = matmul_u32.digit_matmul_accumulate(hint[rows], a, planes.d0, planes.d1)
-                phase["dispatch"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            hint_host = hint[:, :cols].cpu().numpy().view(np.uint32)
-            phase["drain"] = time.perf_counter() - t0
-
-        server = cls("torch", planes, m, cols, bit_len, "digit2")
-        server.setup_stats = {
-            "upload_bytes": a_bytes + planes.device_bytes,
-            "a_upload_bytes": a_bytes,
-            "upload_s": round(phase["planes_upload"] + phase["put"] + phase["drain"], 3),
-            "xof_cpu_s": round(xof.get("producer_cpu_s", 0.0), 2),
-            "hint_block_rows": block_rows,
-            "phases_s": {k: round(v, 2) for k, v in phase.items()},
-            "cpu_s": clock.attrib(producer=xof.get("producer_cpu_s", 0.0)),
-            "wall_s": round(time.perf_counter() - wall0, 2),
-        }
-        return server, hint_host, filt
+        server = cls("numpy", mat_d, m, cols, bit_len, "digit2")
+        # A's rows are queries: the hint is their answer
+        return server, server._state.respond(prg.expand_seed(LWE_DIMENSION, m, seed, mode=prg_mode)), filt
 
     @classmethod
     def _setup_sharded(cls, seed, db, arity, bit_len, rng, prg_mode, mesh):
-        """Setup over a mesh: the encode of `_setup_stream` (so the same rng
-        gives the same filter as without a mesh), the packed planes
-        row-sharded over `model`, then the hint. In ctr mode every shard
-        generates only its own fingerprint range of A on its device and
-        folds it there. In stream mode A's row blocks come off the host
-        XOF, a block ahead in a thread, each zero-padded to the planes'
-        padded rows and folded as one batch of queries whose columns are
-        split over the shards."""
-        from ..parallel import build_sharded_pallas_db, sharded_hint_ctr_packed, sharded_hint_packed_fn
-
+        """The encode of the unsharded routes (so the same rng gives the same
+        filter), the packed planes row-sharded over `model`, then the hint:
+        in ctr mode every shard generates its own fingerprint range of A on
+        its device and folds it there; in stream mode A's host row blocks
+        are folded as query batches whose columns are split over the shards."""
         clock = _CpuClock()
-        wall0 = time.perf_counter()
-        with telemetry.span("server_setup.encode_db", entries=len(db), b=bit_len):
-            mat_d, filt = encode_db.from_kv_database(
-                db, arity, bit_len, SERVER_SETUP_MAX_ATTEMPT_COUNT, rng
-            )
+        mat_d, filt, encode_s = _encode(db, arity, bit_len, rng)
         m, cols = mat_d.shape
-        phase = dict(encode=time.perf_counter() - wall0)
+        phase = dict(encode=encode_s)
         t0 = time.perf_counter()
         with telemetry.span("server_setup.pack_and_shard", m=m, cols=cols):
-            planes = build_sharded_pallas_db(mesh, mat_d, bit_len)
+            planes = parallel.build_sharded_pallas_db(mesh, mat_d, bit_len)
         del mat_d
-        phase["pack_shard"] = time.perf_counter() - t0
-        m_pad = planes.m_pad
-
-        t0 = time.perf_counter()
+        t0 = _lap(phase, "pack_shard", t0)
         xof: dict = {}
         a_bytes = 0
         if prg_mode == "ctr":
-            with telemetry.span("server_setup.hint_sharded_ctr", m_pad=m_pad):
-                hint = sharded_hint_ctr_packed(mesh, planes, seed)
+            with telemetry.span("server_setup.hint_sharded_ctr", m_pad=planes.m_pad):
+                hint = parallel.sharded_hint_ctr_packed(mesh, planes, seed)
         else:
-            hint_step = sharded_hint_packed_fn(mesh, planes)
             block_rows = min(max(1, (16 << 20) // (4 * m)), LWE_DIMENSION)
-            parts = []
-            with telemetry.span("server_setup.hint_sharded", m_pad=m_pad), \
-                    contextlib.closing(prg.prefetch_iter(
-                        prg.iter_row_blocks(LWE_DIMENSION, m, seed, block_rows, mode=prg_mode), stats=xof
-                    )) as blocks:
-                for _, block in blocks:
-                    a = torch.zeros((block.shape[0], m_pad), dtype=torch.int32)
-                    a[:, :m] = torch.from_numpy(block.view(np.int32))
-                    a_bytes += block.nbytes
-                    parts.append(hint_step(a))
-                hint = torch.cat([p.cpu() for p in parts]).contiguous().numpy().view(np.uint32)
-        phase["hint"] = time.perf_counter() - t0
-
+            hint, a_bytes, xof = _fold_host_rows(planes, seed, m, block_rows, prg_mode, phase,
+                                                 "server_setup.hint_sharded", m_pad=planes.m_pad)
+        _lap(phase, "hint", t0)
         server = cls("torch", planes, m, cols, bit_len, "packed", mesh=mesh)
-        server.setup_stats = {
-            # the planes this process placed on its devices, and in stream
-            # mode A's row blocks, which go to the devices inside the hint
-            # steps; upload_s is the pack-and-place phase alone
-            "upload_bytes": planes.device_bytes + a_bytes,
-            "a_upload_bytes": a_bytes,
-            "upload_s": round(phase["pack_shard"], 3),
-            "phases_s": {k: round(v, 2) for k, v in phase.items()},
-            "cpu_s": clock.attrib(producer=xof.get("producer_cpu_s", 0.0)),
-            "wall_s": round(time.perf_counter() - wall0, 2),
-        }
+        # the planes this process placed on its devices, and in stream mode
+        # A's row blocks; upload_s is the pack-and-place phase alone
+        server.setup_stats = clock.setup_stats(
+            phase, phase["pack_shard"], dict(producer=xof.get("producer_cpu_s", 0.0)),
+            upload_bytes=planes.device_bytes + a_bytes, a_upload_bytes=a_bytes)
         return server, hint, filt
 
     @classmethod
-    def _setup_stream(cls, seed, db, arity, bit_len, rng, device, block_rows=STREAM_BLOCK_ROWS):
-        """Stream-mode setup: encode D on the host (the JAX package's
-        encode, so the same rng gives the same filter), upload its packed
-        planes, then fold A into the hint `block_rows` rows at a time:
-        hint[r0:r0+r] += A[r0:r0+r] . D, with the rows of A as the query
-        batch of the respond kernel. A comes from the host XOF, one serial
-        sponge read in row order, which a thread runs ahead of the folds
-        (the native squeeze releases the GIL); each block is copied to the
-        device from pageable memory, a copy that returns once its source
-        has been read, so the producer's next block never races it."""
+    def _setup_host_rows(cls, seed, db, arity, bit_len, rng, device, layout, prg_mode, block_rows):
+        """Encode D on the host, put its planes of `layout` on the device,
+        then fold hint[r0:r0+r] += A[r0:r0+r] . D `block_rows` at a time
+        (`_fold_host_rows`): for "packed" (stream mode) a query batch of the
+        respond kernel, A from the host XOF's serial sponge; for "digit2",
+        the JAX package's, the block's four digits against both digit
+        planes, A off the host in both PRG modes (in ctr mode all of A
+        expanded first: a row block is strided in the ctr stream)."""
+        build, build_span, build_phase, fold_span, default_rows = _HOST_ROW_LAYOUTS[layout]
         clock = _CpuClock()
-        wall0 = time.perf_counter()
-        with telemetry.span("server_setup.encode_db", entries=len(db), b=bit_len):
-            mat_d, filt = encode_db.from_kv_database(
-                db, arity, bit_len, SERVER_SETUP_MAX_ATTEMPT_COUNT, rng
-            )
+        mat_d, filt, encode_s = _encode(db, arity, bit_len, rng)
         m, cols = mat_d.shape
-        phase = dict(encode=time.perf_counter() - wall0, pack_upload=0.0, wait=0.0, put=0.0,
-                     dispatch=0.0, drain=0.0)
+        phase = {"encode": encode_s}
         t0 = time.perf_counter()
-        with telemetry.span("server_setup.pack_and_upload", m=m, cols=cols):
-            planes = build_packed_db(mat_d, bit_len, device)
+        with telemetry.span(build_span, m=m, cols=cols):
+            planes = build(mat_d, bit_len, device)
         del mat_d
-        phase["pack_upload"] = time.perf_counter() - t0
-
-        r = min(block_rows, LWE_DIMENSION)
-        hint = torch.zeros((LWE_DIMENSION, planes.lo.shape[1]), dtype=torch.int32, device=device)
-        xof: dict = {}
-        a_bytes = 0
-        with telemetry.span("server_setup.hint_stream", blocks=-(-LWE_DIMENSION // r)), \
-                contextlib.closing(prg.prefetch_iter(
-                    prg.iter_row_blocks(LWE_DIMENSION, m, seed, r, mode="stream"), stats=xof
-                )) as blocks:
-            while True:
-                t0 = time.perf_counter()
-                item = next(blocks, None)
-                phase["wait"] += time.perf_counter() - t0
-                if item is None:
-                    break
-                r0, block = item
-                t0 = time.perf_counter()
-                a = torch.from_numpy(block.view(np.int32)).to(device)
-                a_bytes += block.nbytes
-                phase["put"] += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                respond_packed_core(a, planes.lo, planes.hi, bit_len, cols,
-                                    out=hint[r0 : r0 + block.shape[0]])
-                phase["dispatch"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            hint_host = hint[:, :cols].cpu().numpy().view(np.uint32)
-            phase["drain"] = time.perf_counter() - t0
-
-        server = cls("torch", planes, m, cols, bit_len, "packed")
-        server.setup_stats = {
-            "upload_bytes": a_bytes + planes.device_bytes,
-            "a_upload_bytes": a_bytes,
-            "upload_s": round(phase["pack_upload"] + phase["put"] + phase["drain"], 3),
-            "xof_cpu_s": round(xof.get("producer_cpu_s", 0.0), 2),
-            "phases_s": {k: round(v, 2) for k, v in phase.items()},
-            "cpu_s": clock.attrib(producer=xof.get("producer_cpu_s", 0.0)),
-            "wall_s": round(time.perf_counter() - wall0, 2),
-        }
-        return server, hint_host, filt
+        _lap(phase, build_phase, t0)
+        r = min(block_rows or default_rows(m), LWE_DIMENSION)
+        hint, a_bytes, xof = _fold_host_rows(planes, seed, m, r, prg_mode, phase, fold_span,
+                                             blocks=-(-LWE_DIMENSION // r))
+        server = cls("torch", planes, m, cols, bit_len, layout)
+        producer = xof.get("producer_cpu_s", 0.0)
+        server.setup_stats = clock.setup_stats(
+            phase, phase[build_phase] + phase["put"] + phase["drain"], dict(producer=producer),
+            upload_bytes=a_bytes + planes.device_bytes, a_upload_bytes=a_bytes, xof_cpu_s=round(producer, 2),
+            hint_block_rows=r)
+        return server, hint, filt
 
     @classmethod
     def _setup_ctr_pipelined(cls, seed, db, arity, bit_len, rng, device):
@@ -530,7 +416,6 @@ class Server:
         and folded into the hint against A's chunk slab generated on the
         device."""
         clock = _CpuClock()
-        wall0 = time.perf_counter()
         # filter geometry is a function of the DB size alone, so the chunk
         # size is known before the filter is built
         _, _, num_fp = filter_geometry(arity, len(db))
@@ -562,12 +447,7 @@ class Server:
         it = iter(chunks)
 
         def lap(key: str, name: str, t0: float) -> float:
-            """End a chunk phase begun at t0: add it to phase[key] and
-            record it as the span server_setup.chunk.<name>."""
-            t1 = time.perf_counter()
-            phase[key] += t1 - t0
-            telemetry.add_span("server_setup.chunk." + name, t0, t1)
-            return t1
+            return _lap(phase, key, t0, "server_setup.chunk." + name)
 
         with telemetry.span("server_setup.stream_pack_upload_fold", chunks=m_pad // cc, m=m, cols=cols):
             t = time.perf_counter()
@@ -599,23 +479,18 @@ class Server:
                     out=hint,
                 )
                 t = lap("dispatch", "fold", t)
-            t0 = time.perf_counter()
+            t = time.perf_counter()
             hint_host = hint[:, :cols].cpu().numpy().view(np.uint32)
-            phase["drain"] = time.perf_counter() - t0
+            _lap(phase, "drain", t)
         telemetry.trace_event("stream_pipeline_phases", **{k: round(v, 2) for k, v in phase.items()})
 
         server = cls("torch", PackedPlanes(lo, hi, bit_len, m, cols), m, cols, bit_len, "packed")
-        server.setup_stats = {
-            "upload_bytes": upload_bytes,
-            "upload_s": round(phase["put"] + phase["drain"], 3),
-            "phases_s": {k: round(v, 2) for k, v in phase.items()},
-            # wall = main (this thread: pack, copies, waits) + worker (the
-            # native encode thread, which has ended: the chunk iterator
-            # joins it) + runtime (every other thread) + external
-            "cpu_s": clock.attrib(worker=worker_stats.get("worker_cpu_s", 0.0)),
-            "worker_minflt": worker_stats.get("worker_minflt"),
-            "wall_s": round(time.perf_counter() - wall0, 2),
-        }
+        # wall = main (this thread: pack, copies, waits) + worker (the native
+        # encode thread, which has ended: the chunk iterator joins it) +
+        # runtime (every other thread) + external
+        server.setup_stats = clock.setup_stats(
+            phase, phase["put"] + phase["drain"], dict(worker=worker_stats.get("worker_cpu_s", 0.0)),
+            upload_bytes=upload_bytes, worker_minflt=worker_stats.get("worker_minflt"))
         return server, hint_host, filt
 
     # -- online --------------------------------------------------------------
@@ -632,37 +507,18 @@ class Server:
                 return matrix_io.matrix_to_bytes(out)
 
     def respond_batch(self, queries: np.ndarray) -> np.ndarray:
-        """(Q, m) uint32 -> (Q, C) uint32: one kernel launch per batch over
-        packed planes, two `torch._int_mm` products per K_SPLIT rows over
-        digit planes, a uint64 matmul on the host for the numpy oracle."""
+        """(Q, m) uint32 -> (Q, C) uint32, answered by the serving state."""
         with telemetry.span("server.respond_batch") as call:
             queries = np.ascontiguousarray(queries, np.uint32)
             if queries.ndim != 2 or queries.shape[1] != self._num_query_cols:
                 raise IncompatibleDimensionForRowVectorTransposedMatrixMultiplication()
             call.set(queries=queries.shape[0])
-            if self._backend == "numpy":
-                return (
-                    queries.astype(np.uint64) @ self._planes.astype(np.uint64)
-                ).astype(np.uint32)
-            if self._sharded_respond is not None:
-                # zero columns up to the planes' padded rows, zero rows up to a
-                # multiple of the data axis; both are cut from the answer
-                nq, data = queries.shape[0], self._mesh.shape["data"]
-                q = torch.zeros((-(-nq // data) * data, self._planes.m_pad), dtype=torch.int32)
-                q[:nq, : queries.shape[1]] = torch.from_numpy(queries.view(np.int32))
-                return self._sharded_respond(q)[:nq].cpu().contiguous().numpy().view(np.uint32)
-            # the explicit device (never the calling thread's current one): the
-            # TCP dispatcher calls this from a worker thread
             with telemetry.span("server.respond_batch.upload", bytes=queries.nbytes):
-                q = torch.from_numpy(queries.view(np.int32)).to(self.device)
+                q = self._state.upload(queries)
             with telemetry.span("server.respond_batch.kernel"):
-                if self._layout == "digit2":
-                    p = self._planes
-                    out = respond_ops.respond_batch(q, p.d0, p.d1)[:, : p.num_cols].contiguous()
-                else:
-                    out = respond_batch_packed(q, self._planes)
+                out = self._state.respond(q)
             with telemetry.span("server.respond_batch.readback") as readback:
-                answer = out.cpu().numpy().view(np.uint32)
+                answer = self._state.readback(out)
                 readback.set(bytes=answer.nbytes)
             return answer
 
@@ -671,36 +527,20 @@ class Server:
     def save(self, path: str) -> None:
         """Persist the serving state in the JAX package's archive layouts
         (chalametpir_tpu.Server.save), which either package's `load`
-        reads: a `meta` repr and, for packed planes, `lo`, `hi` and
-        `tile_k`, the row alignment of the planes; for digit planes `d0`
-        and `d1` cut to (m, c), under backend "jax"; for the numpy oracle
-        `mat_d`. The hint and filter params are not in it: they left at
-        setup.
-
-        A server sharded over an in-process mesh gathers its shards, as
-        the JAX package does: the archive loads as an unsharded server (the
-        TCP server's main refuses --save-state with --mesh for that
-        reason). A rank of a multi-process mesh holds one shard and raises
-        ValueError."""
-        p = self._planes
+        reads: a `meta` repr and the arrays of the state's `archive()`. The
+        hint and filter params are not in it: they left at setup. A server
+        sharded over an in-process mesh gathers its shards, as the JAX
+        package does, so the archive loads unsharded (the TCP server's main
+        refuses --save-state with --mesh for that reason); a rank of a
+        multi-process mesh holds one shard and raises ValueError."""
         meta = dict(
-            # the name under which the JAX package's load rebuilds a device server
-            backend="numpy" if self._backend == "numpy" else "jax",
+            backend=self._state.archive_backend,
             layout=self._layout,
             num_query_cols=self._num_query_cols,
             num_response_cols=self._num_response_cols,
             mat_elem_bit_len=self.mat_elem_bit_len,
         )
-        if self._backend == "numpy":
-            arrays = dict(mat_d=p)
-        elif self._layout == "digit2":
-            m, c = p.num_rows, p.num_cols
-            arrays = dict(d0=p.d0[:m, :c].cpu().numpy(), d1=p.d1[:m, :c].cpu().numpy())
-        else:
-            lo, hi = p.gather() if self._mesh is not None else (p.lo, p.hi)
-            arrays = dict(lo=lo.cpu().numpy(), tile_k=np.array([M_ALIGN]))
-            if hi is not None:
-                arrays["hi"] = hi.cpu().numpy()
+        arrays = self._state.archive()
         # through a file handle: np.savez(str) appends ".npz" to a path
         # without a suffix, which load would then not find
         with open(path, "wb") as f:
@@ -718,21 +558,10 @@ class Server:
             b, m, c = meta["mat_elem_bit_len"], meta["num_query_cols"], meta["num_response_cols"]
             if meta["backend"] == "numpy":
                 return cls("numpy", archive["mat_d"], m, c, b, meta["layout"])
-            device = resolve_device(device)
-            if meta["layout"] == "packed":
-                lo = archive["lo"]
-                if lo.ndim != 2 or lo.shape[0] < m or lo.shape[1] < c:
-                    raise ValueError(f"archive planes {lo.shape} do not cover {m} x {c}")
-                hi = archive["hi"] if "hi" in archive else None
-                planes = PackedPlanes(
-                    torch.from_numpy(lo).to(device),
-                    None if hi is None else torch.from_numpy(hi).to(device),
-                    b, m, c,
-                )
-            elif meta["layout"] == "digit2":
-                planes = respond_ops.digit_planes_from_host(archive["d0"], archive["d1"], b, device)
-            else:
+            kind = _ARCHIVED_LAYOUTS.get(meta["layout"])
+            if kind is None:
                 raise ValueError(f"unknown archive layout {meta['layout']!r}")
+            planes = kind.from_archive(archive, b, m, c, resolve_device(device))
         return cls("torch", planes, m, c, b, meta["layout"])
 
     @property
@@ -756,9 +585,7 @@ class Server:
     @property
     def device(self) -> torch.device:
         """Where respond runs: the planes' device; the CPU for the numpy backend."""
-        if self._backend == "numpy":
-            return torch.device("cpu")
-        return self._planes.device
+        return self._state.device
 
     @property
     def num_query_cols(self) -> int:

@@ -1,10 +1,11 @@
-"""Client query engines: s . A on the card.
+"""Client query engines: s . A on the card, or on the host.
 
 Counterpart of chalametpir_tpu/ops/client_device.py: the resident
-DeviceQueryEngine and the StreamingQueryEngine. The resident engine
-keeps A as four biased int8 byte planes, planes[j][c, r] = ((A[r, c] >>
-8j) & 255) - 128, fingerprint major like the ctr stream, so each slab of
-fingerprint columns is generated by the K3 kernel and recoded in place:
+DeviceQueryEngine, the StreamingQueryEngine and HostQueryEngine, the JAX
+client's host engine (its `Client` with no device engine). The resident
+engine keeps A as four biased int8 byte planes, planes[j][c, r] = ((A[r,
+c] >> 8j) & 255) - 128, fingerprint major like the ctr stream, so each
+slab of fingerprint columns is generated by the K3 kernel and recoded in place:
 all of A's planes, (4, m_pad, k_pad), built from the seed on the device
 (ctr mode) or from the host XOF's row blocks (stream mode,
 `from_host_rows`, and `from_host_matrix` for a whole host A: the same
@@ -34,8 +35,9 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..device import resolve_device
 from ..errors import AcceleratorError, InvalidDimensionForVector
-from ..models.server import resolve_device
+from ..native import engine as _native
 from ..params import LWE_DIMENSION
 from . import prg_torch
 from .respond_packed import _wrap_i32
@@ -70,6 +72,39 @@ class DeviceResult:
     def __array__(self, dtype=None, copy=None):
         arr = self._t.cpu().numpy().view(np.uint32)
         return arr if dtype is None else arr.astype(dtype)
+
+    def read(self, stats: dict) -> np.ndarray:
+        """The host copy; the wait the caller's host work did not hide and
+        the readback go into `stats`."""
+        t0 = time.perf_counter()
+        self.block_until_ready()
+        t1 = time.perf_counter()
+        arr = np.asarray(self)
+        stats.update(device_wait_s=round(t1 - t0, 3), readback_s=round(time.perf_counter() - t1, 3),
+                     readback_bytes=int(arr.nbytes))
+        return arr
+
+
+class HostResult:
+    """The host engine's (Q, m) u32 result in DeviceResult's shape, computed
+    when read: the caller's host work runs first, as beside a device's."""
+
+    def __init__(self, codes: np.ndarray, mat_a: np.ndarray):
+        self._codes = codes
+        self._mat_a = mat_a
+
+    def __getitem__(self, idx) -> "HostResult":
+        return HostResult(self._codes[idx], self._mat_a)
+
+    def __array__(self, dtype=None, copy=None):
+        arr = np.stack([_native.ternary_matvec(c, self._mat_a) for c in self._codes])
+        return arr if dtype is None else arr.astype(dtype)
+
+    def read(self, stats: dict) -> np.ndarray:
+        t0 = time.perf_counter()
+        arr = np.asarray(self)
+        stats["host_matvec_s"] = round(time.perf_counter() - t0, 3)
+        return arr
 
 
 def _recode_planes(slab: torch.Tensor) -> torch.Tensor:
@@ -111,12 +146,18 @@ def _plane_products(s: torch.Tensor, planes: torch.Tensor, q: int) -> torch.Tens
 
 
 class _QueryEngine:
-    """The s . A surface the base Client calls; an engine sets k, m and
-    layout and implements matvec_batch_async."""
+    """The s . A surface the Client calls; an engine sets k, m and layout
+    and implements matvec_batch_async, whose result `np.asarray` reads."""
 
     k: int
     m: int
     layout: str
+    uses_device = True  # s . A in torch on a device: all but the host engine
+
+    def fused_launches(self, q: int) -> int:
+        """Launches of the fused s . A kernel for q secrets (the launch
+        span's `fused`): none but on the streaming engine."""
+        return 0
 
     def matvec(self, codes: np.ndarray) -> np.ndarray:
         """(k,) int8 ternary codes {0:0, 1:+1, 2:-1} -> (m,) uint32 s . A."""
@@ -130,6 +171,22 @@ class _QueryEngine:
 
     def matvec_batch_async(self, codes: np.ndarray) -> DeviceResult:
         raise NotImplementedError
+
+
+class HostQueryEngine(_QueryEngine):
+    """The JAX client's host engine: A as a (k, m) uint32 host matrix and
+    s . A by the native ternary matvec, no torch tensor and no device."""
+
+    layout = "host"
+    uses_device = False
+    device_bytes = 0  # setup_stats["plane_bytes"]
+
+    def __init__(self, pub_mat_a: np.ndarray):
+        self.pub_mat_a = pub_mat_a
+        self.k, self.m = pub_mat_a.shape
+
+    def matvec_batch_async(self, codes: np.ndarray) -> HostResult:
+        return HostResult(codes, self.pub_mat_a)
 
 
 class DeviceQueryEngine(_QueryEngine):
@@ -300,9 +357,7 @@ class StreamingQueryEngine(_QueryEngine):
         return 0
 
     def fused_launches(self, q: int) -> int:
-        """The fused kernel's launches for a batch of q secrets, ceil(q /
-        kernels.SA_MAX_Q): the client's launch span records them as
-        `fused`."""
+        """ceil(q / kernels.SA_MAX_Q): one launch a SA_MAX_Q secrets."""
         return -(-q // kernels.SA_MAX_Q)
 
     def matvec_batch_async(self, codes: np.ndarray) -> DeviceResult:

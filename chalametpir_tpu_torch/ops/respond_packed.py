@@ -25,6 +25,7 @@ from .. import kernels
 from ..native import engine
 from .digits import NUM_U32_DIGITS, _wrap_i32  # noqa: F401  (NUM_U32_DIGITS re-exported, as in the JAX package)
 from .packed import hi_bits, hi_pack_factor  # noqa: F401  (re-exported: their old home)
+from .serving import ServingState
 
 LANE = 128  # c_pad is a multiple of this (the JAX package's lane width)
 # the JAX package's default tile: rows are padded to whole tiles, so the
@@ -46,8 +47,9 @@ def pack_geometry(b: int, c_pad: int) -> tuple[int, int, int]:
 
 
 @dataclass
-class PackedPlanes:
-    """Device-resident packed DB, in the kernel's layout."""
+class PackedPlanes(ServingState):
+    """Device-resident packed DB, in the kernel's layout; the packed
+    layout's serving state (ops/serving.py)."""
 
     lo: torch.Tensor  # (m_pad, c_pad) int8, biased low bytes
     hi: torch.Tensor | None  # (m_pad, pc) uint8, block-interleaved, or None
@@ -62,6 +64,34 @@ class PackedPlanes:
     @property
     def device_bytes(self) -> int:
         return self.lo.numel() + (self.hi.numel() if self.hi is not None else 0)
+
+    @property
+    def c_pad(self) -> int:
+        return self.lo.shape[1]
+
+    def respond(self, queries_u32: torch.Tensor) -> torch.Tensor:
+        return respond_batch_packed(queries_u32, self)
+
+    def fold_rows(self, a_block: torch.Tensor, out_rows: torch.Tensor) -> None:
+        """Accumulated in the kernel: out_rows is (r, c_pad)."""
+        respond_packed_core(a_block, self.lo, self.hi, self.mat_elem_bit_len, self.num_cols, out=out_rows)
+
+    def archive(self) -> dict:
+        # tile_k: the planes' row alignment
+        arrays = dict(lo=self.lo.cpu().numpy(), tile_k=np.array([M_ALIGN]))
+        if self.hi is not None:
+            arrays["hi"] = self.hi.cpu().numpy()
+        return arrays
+
+    @classmethod
+    def from_archive(cls, archive, mat_elem_bit_len: int, num_rows: int, num_cols: int,
+                     device: torch.device) -> "PackedPlanes":
+        lo = archive["lo"]
+        if lo.ndim != 2 or lo.shape[0] < num_rows or lo.shape[1] < num_cols:
+            raise ValueError(f"archive planes {lo.shape} do not cover {num_rows} x {num_cols}")
+        hi = archive["hi"] if "hi" in archive else None
+        return cls(torch.from_numpy(lo).to(device), None if hi is None else torch.from_numpy(hi).to(device),
+                   mat_elem_bit_len, num_rows, num_cols)
 
 
 def build_packed_db(mat: np.ndarray, mat_elem_bit_len: int, device,

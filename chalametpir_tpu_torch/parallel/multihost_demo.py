@@ -221,6 +221,13 @@ def main(argv=None) -> None:
     if args.launch:
         sys.exit(launch(args))
     worker(args)
+    import torch.distributed as dist
+
+    # leave in step, no rank tearing its connections down while a peer is
+    # in a collective; the mesh and servers went with worker(), so nothing
+    # holds the group and it is freed here, not at interpreter exit
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -36,8 +36,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..device import resolve_device
 from ..errors import AcceleratorError
-from ..models.server import resolve_device
 from ..native import engine
 from ..ops import prg_torch
 from ..ops.digits import NUM_U32_DIGITS  # noqa: F401  (re-exported, as in the JAX package)
@@ -45,10 +45,12 @@ from ..ops.matmul_u32 import _matmul_digits, pad_plane
 from ..ops.respond_packed import (
     LANE,
     M_ALIGN,
+    PackedPlanes,
     hint_fold_partial,
     pack_geometry,
     respond_packed_core,
 )
+from ..ops.serving import ServingState
 from ..params import LWE_DIMENSION
 
 
@@ -115,8 +117,9 @@ def _indexed(device: torch.device) -> torch.device:
 
 
 @dataclass
-class ShardedPlanes:
-    """The packed DB, its rows split in `model` equal shards.
+class ShardedPlanes(ServingState):
+    """The packed DB, its rows split in `model` equal shards; the serving
+    state over a mesh (ops/serving.py).
 
     `runs` maps each device of this process to (s0, lo, hi): the planes of
     the contiguous run of shards from s0 that the device holds, one tensor
@@ -167,6 +170,22 @@ class ShardedPlanes:
         parts = [self.shard(s, device) for d, s, device in self.mesh.cells() if d == 0]
         lo = torch.cat([p[0].cpu() for p in parts])
         return lo, None if parts[0][1] is None else torch.cat([p[1].cpu() for p in parts])
+
+    def respond(self, queries_u32: torch.Tensor) -> torch.Tensor:
+        """Zero-padded to m_pad columns and a multiple of `data` rows (padded
+        DB rows are zero too, so the padding adds nothing), the padded rows
+        cut from the answer, which a gloo reduction leaves on the host."""
+        nq, data = queries_u32.shape[0], self.mesh.shape["data"]
+        shape = (-(-nq // data) * data, self.m_pad)
+        if tuple(queries_u32.shape) != shape:
+            padded = torch.zeros(shape, dtype=torch.int32, device=queries_u32.device)
+            padded[:nq, : queries_u32.shape[1]] = queries_u32
+            queries_u32 = padded
+        return _sharded_product(self.mesh, self, queries_u32, split_rows=True)[:nq].to(self.device).contiguous()
+
+    def archive(self) -> dict:
+        """Of the gathered planes: it loads unsharded. ValueError on a rank."""
+        return PackedPlanes(*self.gather(), self.mat_elem_bit_len, self.num_rows, self.num_cols).archive()
 
 
 def build_sharded_pallas_db(mesh: Mesh, mat: np.ndarray, mat_elem_bit_len: int) -> ShardedPlanes:

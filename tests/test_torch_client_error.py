@@ -121,9 +121,7 @@ def _filter_rows(client, key) -> set[int]:
 
 
 def _s_dot_a(client, secret: np.ndarray, m: int) -> np.ndarray:
-    if client.uses_device:
-        return np.asarray(client._engine.matvec_batch_async(secret[None, :]))[0, :m]
-    return client._ternary_matvec(secret, client._pub_mat_a)
+    return np.asarray(client._engine.matvec_batch_async(secret[None, :]))[0, :m]
 
 
 @pytest.mark.parametrize("engine", ["device", "host"])

@@ -221,7 +221,7 @@ def test_digit_planes_on_a_device_hold_the_host_planes(m, c, rng):
     assert planes.d0.shape == planes.d1.shape == (-(-m // 8) * 8, -(-c // 8) * 8)
     assert np.array_equal(planes.d0[:m, :c].numpy(), p0) and np.array_equal(planes.d1[:m, :c].numpy(), p1)
     assert not planes.d0[m:].any() and not planes.d0[:, c:].any() and not planes.d1[m:].any()
-    again = respond.digit_planes_from_host(p0, p1, 13, "cpu")
+    again = respond.DigitPlanes.from_archive(dict(d0=p0, d1=p1), 13, m, c, torch.device("cpu"))
     assert torch.equal(again.d0, planes.d0) and torch.equal(again.d1, planes.d1)
     assert (planes.num_rows, planes.num_cols, planes.mat_elem_bit_len) == (m, c, 13)
     assert planes.device_bytes == 2 * planes.d0.numel() and planes.device.type == "cpu"

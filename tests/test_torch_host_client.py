@@ -19,6 +19,7 @@ from chalametpir_tpu_torch.errors import (
     ArithmeticOverflowAddingQueryIndicator,
     KVDatabaseSizeTooLarge,
 )
+from chalametpir_tpu_torch.ops.client_device import HostQueryEngine
 from chalametpir_tpu_torch.params import LWE_DIMENSION
 from chalametpir_tpu_torch.utils import generate_random_kv_database
 
@@ -73,10 +74,11 @@ def test_device_false_is_the_jax_host_engine(mode, arity):
     db, seed, port_server, jax_server, hint, fparams = _deployment(mode, arity)
     want = chalametpir_tpu.Client.setup(seed, hint, fparams, prg_mode=mode, device=False)
     client = Client.setup(seed, hint, fparams, prg_mode=mode, device=False)
-    assert client._pub_mat_a.dtype == want._pub_mat_a.dtype == np.uint32
-    assert client._pub_mat_a.shape == (LWE_DIMENSION, port_server.num_query_cols)
-    assert client._pub_mat_a.tobytes() == want._pub_mat_a.tobytes()
-    assert client._engine is None and not client.uses_device and not want.uses_device
+    assert isinstance(client._engine, HostQueryEngine) and want._engine is None
+    assert client._engine.pub_mat_a.dtype == want._pub_mat_a.dtype == np.uint32
+    assert client._engine.pub_mat_a.shape == (LWE_DIMENSION, port_server.num_query_cols)
+    assert client._engine.pub_mat_a.tobytes() == want._pub_mat_a.tobytes()
+    assert not client.uses_device and not want.uses_device
     assert JAX_STATS[mode] == set(want.setup_stats)
     assert JAX_STATS[mode] | {"engine", "plane_bytes"} == set(client.setup_stats)
     assert (client.setup_stats["engine"], client.setup_stats["plane_bytes"]) == ("host", 0)
@@ -85,8 +87,7 @@ def test_device_false_is_the_jax_host_engine(mode, arity):
         assert "host_matvec_s" in each.prepare_stats and "readback_s" not in each.prepare_stats
         assert each.prepare_stats["count"] == 3
     secret = np.random.default_rng(arity).integers(0, 3, size=LWE_DIMENSION, dtype=np.uint8)
-    assert np.array_equal(client._ternary_matvec(secret, client._pub_mat_a),
-                          want._ternary_matvec(secret, want._pub_mat_a))
+    assert np.array_equal(client._engine.matvec(secret), want._ternary_matvec(secret, want._pub_mat_a))
     keys = list(db)[:4]
     for i, key in enumerate(keys):
         for each in (client, want):
@@ -164,7 +165,7 @@ def test_cpu_still_builds_the_torch_engine(device):
     versions (the tests' path), not the host engine."""
     db, seed, server, _, hint, fparams = _deployment("stream", 4)
     client = Client.setup(seed, hint, fparams, device=device)
-    assert client.uses_device and client._pub_mat_a is None
+    assert client.uses_device and not isinstance(client._engine, HostQueryEngine)
     assert client._engine.device.type == "cpu" and client.setup_stats["engine"] == "resident"
     key = next(iter(db))
     assert client.process_response(key, server.respond(_query(client, key))) == db[key]

@@ -196,12 +196,9 @@ multihost.initialize(f"127.0.0.1:{port}", world, rank)  # idempotent
 assert dist.get_backend() == "gloo" and dist.get_world_size() == world
 multihost.warmup_collectives(timeout_s=90)
 data = 2 if world == 4 else 1
-mesh = multihost.make_multihost_mesh(model=world // data, data=data, device="cpu")
-assert dict(mesh.shape) == {"data": data, "model": world // data}
-assert list(mesh.cells()) == [(*divmod(rank, world // data), torch.device("cpu"))]
 
 
-def sharded_server(mode):
+def sharded_server(mesh, mode):
     rng = np.random.default_rng(11)
     db = generate_random_kv_database(300, rng=rng, value_byte_len=(1, 64))
     seed = rng.bytes(32)
@@ -212,55 +209,64 @@ def sharded_server(mode):
     return server, one
 
 
-if scenario == "wrap":
-    # gloo's int32 SUM wraps mod 2^32, through the port's own reduction
-    vals = [0x7FFFFFFF, -0x80000000, 0x7FFFFFF0, 5]
-    got = sharding._sum_partials(mesh, {torch.device("cpu"): torch.tensor(vals, dtype=torch.int32)})
-    want = [((v * world + (1 << 31)) % (1 << 32)) - (1 << 31) for v in vals]
-    assert got.tolist() == want, (got.tolist(), want)
-    if world == 4:
-        assert want == [-4, 0, -64, 20]
-elif scenario == "oversize":
-    # the sentinel raises on every rank, and the group still works after it
-    try:
-        multihost.broadcast_query(b"x" * 57 if rank == 0 else None, max_len=64)
-        raise SystemExit("no ValueError for an oversized query")
-    except ValueError as exc:
-        assert "query exceeds broadcast buffer" in str(exc)
-    payload = bytes(range(256)) * 40  # 10,240 bytes: a 16 KB payload collective
-    assert multihost.broadcast_query(payload if rank == 0 else None) == payload
-    assert multihost.broadcast_query(b"" if rank == 0 else None) == b""
-elif scenario == "serve":
-    # the leader's wrapped respond_batch against the workers' loop, then shutdown
-    server, one = sharded_server("stream")
-    if rank == 0:
-        fn = multihost.leader_respond_batch_fn(server)
-        g = np.random.default_rng(5)
-        for nq in (1, 3, 64):
-            rows = g.integers(0, 1 << 32, size=(nq, server.num_query_cols), dtype=np.uint32)
-            assert np.array_equal(fn(rows), one.respond_batch(rows))
-        multihost.broadcast_shutdown()
-    else:
-        multihost.worker_respond_loop(server)
-elif scenario == "setup":
-    # every rank holds its own shard alone and returns the full answer
-    for mode in ("ctr", "stream"):
-        server, one = sharded_server(mode)
-        planes = server.planes
-        (s0, lo, hi), = planes.runs.values()
-        assert s0 == rank % mesh.shape["model"] and lo.shape[0] == planes.m_local == planes.m_pad // mesh.shape["model"]
-        g = np.random.default_rng(6)
-        for nq in (1, 4):
-            rows = g.integers(0, 1 << 32, size=(nq, server.num_query_cols), dtype=np.uint32)
-            assert np.array_equal(server.respond_batch(rows), one.respond_batch(rows))
+def run(mesh):
+    assert dict(mesh.shape) == {"data": data, "model": world // data}
+    assert list(mesh.cells()) == [(*divmod(rank, world // data), torch.device("cpu"))]
+    if scenario == "wrap":
+        # gloo's int32 SUM wraps mod 2^32, through the port's own reduction
+        vals = [0x7FFFFFFF, -0x80000000, 0x7FFFFFF0, 5]
+        got = sharding._sum_partials(mesh, {torch.device("cpu"): torch.tensor(vals, dtype=torch.int32)})
+        want = [((v * world + (1 << 31)) % (1 << 32)) - (1 << 31) for v in vals]
+        assert got.tolist() == want, (got.tolist(), want)
+        if world == 4:
+            assert want == [-4, 0, -64, 20]
+    elif scenario == "oversize":
+        # the sentinel raises on every rank, and the group still works after it
         try:
-            server.save("/dev/null")
-            raise SystemExit("a rank saved a server of which it holds one shard")
-        except ValueError:
-            pass
-else:
-    raise SystemExit(f"unknown scenario {scenario}")
+            multihost.broadcast_query(b"x" * 57 if rank == 0 else None, max_len=64)
+            raise SystemExit("no ValueError for an oversized query")
+        except ValueError as exc:
+            assert "query exceeds broadcast buffer" in str(exc)
+        payload = bytes(range(256)) * 40  # 10,240 bytes: a 16 KB payload collective
+        assert multihost.broadcast_query(payload if rank == 0 else None) == payload
+        assert multihost.broadcast_query(b"" if rank == 0 else None) == b""
+    elif scenario == "serve":
+        # the leader's wrapped respond_batch against the workers' loop, then shutdown
+        server, one = sharded_server(mesh, "stream")
+        if rank == 0:
+            fn = multihost.leader_respond_batch_fn(server)
+            g = np.random.default_rng(5)
+            for nq in (1, 3, 64):
+                rows = g.integers(0, 1 << 32, size=(nq, server.num_query_cols), dtype=np.uint32)
+                assert np.array_equal(fn(rows), one.respond_batch(rows))
+            multihost.broadcast_shutdown()
+        else:
+            multihost.worker_respond_loop(server)
+    elif scenario == "setup":
+        # every rank holds its own shard alone and returns the full answer
+        for mode in ("ctr", "stream"):
+            server, one = sharded_server(mesh, mode)
+            planes = server.planes
+            (s0, lo, hi), = planes.runs.values()
+            assert s0 == rank % mesh.shape["model"] and lo.shape[0] == planes.m_local == planes.m_pad // mesh.shape["model"]
+            g = np.random.default_rng(6)
+            for nq in (1, 4):
+                rows = g.integers(0, 1 << 32, size=(nq, server.num_query_cols), dtype=np.uint32)
+                assert np.array_equal(server.respond_batch(rows), one.respond_batch(rows))
+            try:
+                server.save("/dev/null")
+                raise SystemExit("a rank saved a server of which it holds one shard")
+            except ValueError:
+                pass
+    else:
+        raise SystemExit(f"unknown scenario {scenario}")
+
+
+run(multihost.make_multihost_mesh(model=world // data, data=data, device="cpu"))
+# the mesh and every server over it went with run(): nothing holds the group
+# past its destruction, so it is freed here and not at interpreter exit
 dist.barrier()
+dist.destroy_process_group()
 print(f"RANK{rank} {scenario} OK", flush=True)
 """
 

@@ -22,6 +22,7 @@ from chalametpir_tpu_torch.errors import (
 )
 from chalametpir_tpu_torch.models.server import resolve_device
 from chalametpir_tpu_torch.net.server import DEMO_DB, BatchDispatcher, PirTcpServer
+from chalametpir_tpu_torch.ops.client_device import HostQueryEngine
 from chalametpir_tpu_torch.utils import telemetry
 
 # the tensors here are small: one intra-op thread per test worker keeps
@@ -66,7 +67,10 @@ def test_jax_client_device_values_build_an_engine(device, setup, tmp_path):
         loaded = package.load(path, device=device)
         assert loaded.process_response(b"plum", server.respond(pending)) == b"purple"
         for each in (client, loaded):
-            assert not each.uses_device and each._engine is None and each._pub_mat_a is not None
+            # the JAX client holds A itself and no engine; the port's host engine holds it
+            host_a = each._engine.pub_mat_a if package is Client else each._pub_mat_a
+            assert not each.uses_device and host_a is not None
+            assert isinstance(each._engine, HostQueryEngine) if package is Client else each._engine is None
     assert Client.setup(seed, hint, fparams, device=device).setup_stats["engine"] == "host"
 
 

@@ -213,7 +213,7 @@ def test_server_api_sharded_round_trip(shape, rng):
     fseed = int(rng.integers(0, 2**63))
     mesh = _mesh(shape)
     server, hint, fparams = Server.setup(seed, db, arity=3, mesh=mesh, rng=np.random.default_rng(fseed))
-    assert server._mesh is mesh
+    assert server.planes.mesh is mesh
     ref, ref_hint, ref_fparams = chalametpir_tpu.Server.setup(
         seed, db, arity=3, mesh=_jax_mesh(shape), rng=np.random.default_rng(fseed))
     one, one_hint, one_fparams = Server.setup(seed, db, arity=3, rng=np.random.default_rng(fseed), device="cpu")
@@ -412,7 +412,7 @@ def test_main_mesh_flag(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(net_server.PirTcpServer, "serve", no_serve)
     net_server.main(["--device", "cpu", "--mesh", "2x3", "--prg-mode", "ctr"])
     server = served[0]._server
-    assert dict(server._mesh.shape) == {"data": 2, "model": 3}
+    assert dict(server.planes.mesh.shape) == {"data": 2, "model": 3}
     client = Client.setup(served[0]._seed, served[0]._hint, served[0]._filter_params, prg_mode="ctr", device="cpu")
     assert client.process_response(b"kiwi", server.respond(_query(client, b"kiwi"))) == b"brown"
     prefix = str(tmp_path / "state")
